@@ -1,0 +1,77 @@
+"""CLI surface of the port: gen -> fit -> check, the device switch, and a
+fresh process that runs the port without importing JAX."""
+
+import os
+import subprocess
+import sys
+
+import h5py
+import pytest
+import torch
+
+from massivedatans_tpu_torch import cli
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the reference output schema (massivedatans_tpu/io/hdf5io.py:85), plus the
+# per-dataset truncation flag write_results adds
+SCHEMA = {"logZ", "logZerr", "u", "x", "L", "w", "mask", "ndraws", "stalled"}
+
+
+def test_gen_fit_check_roundtrip(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    cli.main(["gen", "horns", "64"])
+    assert os.path.exists("data_widths_64.hdf5")
+    cli.main(["fit", "data_widths_64.hdf5", "4", "--nlive", "50",
+              "--device", "cpu", "--quiet"])
+    out = "data_widths_64.hdf5_MLFRIENDS_nlive50_4.out8.hdf5"
+    assert os.path.exists(out)
+    assert os.path.exists("data_widths_64.hdf5_MLFRIENDS_nlive50_4.out8.stats.json")
+    with h5py.File(out) as f:
+        assert set(f.keys()) == SCHEMA
+        assert f["u"].shape[1:] == (4, 3) and f["logZ"].shape == (4,)
+    cli.main(["check", out, "--max-datasets", "2"])
+    text = capsys.readouterr().out
+    assert "logZ[0]" in text and "dataset 1:" in text
+
+
+def test_default_cuda_device_without_card_exits(tmp_path, monkeypatch):
+    """--device defaults to cuda; with no card the fit stops with a message
+    instead of running on the CPU."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cli.main(["gen", "horns", "16"])
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["fit", "data_widths_16.hdf5", "2", "--nlive", "20"])
+    assert exc.value.code not in (0, None)
+    assert "cuda" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
+    assert not any(p.endswith(".out8.hdf5") for p in os.listdir("."))
+
+
+def test_unported_subcommands_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        cli.main(["musefit", "cube.fits", "sel.reg", "0", "0.5", "t.txt"])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        cli.main(["fit", "d.hdf5", "2", "--device", "cpu",
+                  "--checkpoint-dir", str(tmp_path)])
+
+
+def test_run_fit_in_fresh_process_imports_no_jax():
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from massivedatans_tpu.config import RunConfig\n"
+        "from massivedatans_tpu.datagen.generators import gen_horns\n"
+        "from massivedatans_tpu_torch.cli import run_fit\n"
+        "d = gen_horns(16)\n"
+        "r = run_fit(d['x'], d['y'][:, :2], RunConfig(nlive_points=30, "
+        "max_samples=60), 'cpu')\n"
+        "assert np.isfinite(r.logZ).all(), r.logZ\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "print('ok', r.niterations)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
