@@ -3,13 +3,14 @@
     python -m massivedatans_tpu_torch gen horns 1000
     python -m massivedatans_tpu_torch fit data_widths_1000.hdf5 100
     python -m massivedatans_tpu_torch check <output.out8.hdf5>
+    python -m massivedatans_tpu_torch musefit CUBE REGION ZLO ZHI TEMPLATES...
 
 Same arguments, environment knobs and output files as
 ``python -m massivedatans_tpu`` (reference ``sample.py``), plus
 ``--device`` (default ``cuda``). The data generators and the HDF5 schema
 are the JAX package's numpy-only modules, so both packages read and write
 the same files. ``fit`` is a thin wrapper around ``run_fit``, which takes
-arrays in memory.
+arrays in memory; ``musefit`` wraps ``muse.pipeline.run_musefit``.
 """
 
 from __future__ import annotations
@@ -63,7 +64,7 @@ def cmd_gen(args):
 # subcommands of the JAX CLI that this port does not carry yet, with the
 # ROADMAP.md queue 1 item that ports each
 _NOT_PORTED = {
-    "musefit": "11", "refine": "13", "plot-evidences": "16",
+    "refine": "13", "plot-evidences": "16",
     "plot-scaling": "16", "plot-posterior": "16", "plot-bestfit": "16",
     "plot-muse-posterior": "16",
 }
@@ -105,6 +106,31 @@ def cmd_fit(args):
     print("logZ = %.1f +- %.1f" % (result.logZ[0], result.logZerr[0]))
     print("ndraws:", result.ndraws, "niter:", result.u.shape[0])
     print("wrote", prefix + ".hdf5")
+
+
+def cmd_musefit(args):
+    import os
+
+    from massivedatans_tpu_torch.muse.pipeline import run_musefit
+
+    if args.devices > 1 or args.model_parallel > 1:
+        _not_ported_cmd("musefit --devices/--model-parallel > 1", "15")(args)
+    if args.checkpoint_dir is not None:
+        _not_ported_cmd("musefit --checkpoint-dir", "12")(args)
+    device = _resolve_device(args.device)
+    model = args.model or os.environ.get("MODEL", "FULL")
+    maxdata = args.maxdata
+    if maxdata is None:
+        maxdata = int(os.environ.get("MAXDATA", 0))
+    result, problem, cube = run_musefit(
+        args.cube, args.region, args.zlo, args.zhi, args.templates,
+        model=model, maxdata=maxdata,
+        nlive=args.nlive or int(os.environ.get("NLIVE_POINTS", 400)),
+        max_samples=args.max_samples, out_prefix=args.out,
+        ages_file=args.ages_file, device=device,
+    )
+    print("logZ = %.1f +- %.1f" % (result.logZ[0], result.logZerr[0]))
+    print("ndraws:", result.ndraws)
 
 
 def cmd_check(args):
@@ -168,6 +194,30 @@ def main(argv=None):
     c.add_argument("--seed", type=int, default=0,
                    help="seed of the posterior resampling")
     c.set_defaults(fn=cmd_check)
+
+    m = sub.add_parser("musefit", help="fit a MUSE datacube (musefuse.py)")
+    m.add_argument("cube")
+    m.add_argument("region")
+    m.add_argument("zlo", type=float)
+    m.add_argument("zhi", type=float)
+    m.add_argument("templates", nargs="+")
+    m.add_argument("--model", default=None, choices=["FULL", "ZSOL"])
+    m.add_argument("--maxdata", type=int, default=None)
+    m.add_argument("--nlive", type=int, default=None)
+    m.add_argument("--max-samples", type=int, default=100000)
+    m.add_argument("--out", default=None)
+    m.add_argument("--ages-file", default=None,
+                   help="text file with one template age (years) per line; "
+                        "default: the reference BC03 grid (musefuse.py:190)")
+    m.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    m.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint/resume: not ported")
+    m.add_argument("--devices", type=int, default=1,
+                   help="spaxels sharded over several devices: not ported")
+    m.add_argument("--model-parallel", type=int, default=1,
+                   help="wavelength axis sharded over devices: not ported")
+    m.set_defaults(fn=cmd_musefit)
 
     for name, item in _NOT_PORTED.items():
         n = sub.add_parser(name, help=f"not ported yet (ROADMAP item {item})")

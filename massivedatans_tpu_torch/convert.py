@@ -12,6 +12,8 @@ import torch
 
 from massivedatans_tpu_torch.models.analytic import AnalyticGaussian
 from massivedatans_tpu_torch.models.gaussline import GaussLine
+from massivedatans_tpu_torch.muse.likelihood import MuseProblem
+from massivedatans_tpu_torch.muse.model import model_data_from_numpy
 from massivedatans_tpu_torch.ns.engine import EngineState
 from massivedatans_tpu_torch.ns.shelves import Shelves
 
@@ -25,8 +27,12 @@ def problem_from_numpy(arrays, kind: str, device="cpu"):
 
     ``kind="gaussline"``: ``x, y, ysq, noise_level`` (``GaussLineData``);
     ``kind="analytic_gaussian"``: ``centers, sigma``
-    (``AnalyticGaussianData``). Arrays are used as given (float32), so both
-    packages score the same numbers.
+    (``AnalyticGaussianData``);
+    ``kind="muse"`` or ``"muse_zsol"``: the ``MuseModelData`` fields
+    ``templates, ages, age_weight, model_wl, calzetti, data_wl, z_grid,
+    norm_index, zlo, zhi`` and the ``MuseLikeData`` fields ``y_over_v,
+    inv_v, yy``. Arrays are used as given (float32), so both packages score
+    the same numbers.
     """
     f32 = torch.float32
     if kind == "gaussline":
@@ -41,6 +47,17 @@ def problem_from_numpy(arrays, kind: str, device="cpu"):
             centers=_t(arrays["centers"], device, f32),
             sigma=_t(arrays["sigma"], device, f32),
         )
+    if kind in ("muse", "muse_zsol"):
+        md = model_data_from_numpy(
+            arrays["templates"], arrays["ages"], arrays["model_wl"],
+            arrays["data_wl"], arrays["zlo"], arrays["zhi"],
+            int(arrays["norm_index"]), age_weight=arrays["age_weight"],
+            calzetti=arrays["calzetti"], z_grid=arrays["z_grid"],
+            device=device)
+        return MuseProblem(
+            md, _t(arrays["y_over_v"], device, f32),
+            _t(arrays["inv_v"], device, f32), _t(arrays["yy"], device, f32),
+            zsol=kind == "muse_zsol")
     raise ValueError(f"unknown problem kind {kind!r}")
 
 

@@ -22,6 +22,8 @@ class Problem(nn.Module):
       ``priortransform``, sample.py:52-58, batched), and
     - ``loglike(x[B, ndim]) -> L[B, D]`` (reference ``multi_loglikelihood``,
       sample.py:101-108, against all datasets).
+
+    ``loglike_paired`` and ``predict_one`` are optional hooks.
     """
 
     name = "problem"
@@ -48,6 +50,13 @@ class Problem(nn.Module):
         raise NotImplementedError(
             "loglike_paired (one likelihood per dataset, for the gradient "
             "backends) is not ported yet (ROADMAP.md queue 1, item 13)")
+
+    def predict_one(self, x):
+        """One model curve ``ypred[nx]`` for the parameter vector
+        ``x[ndim]`` (the JAX ``Problem.predict_fn``), for best-fit plots."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no predict_one; the plotting layer "
+            "that reads it is not ported yet (ROADMAP.md queue 1, item 16)")
 
     def loglike_sharded(self, x, model_axis_name=None):
         raise NotImplementedError(

@@ -106,6 +106,18 @@ def _not_ported(what: str, item: str):
         f"(ROADMAP.md queue 1, item {item})")
 
 
+def reject_unported(mesh=None, checkpoint_dir=None, max_chunks=None,
+                    dispatch_target_s=None) -> None:
+    """Raise for the JAX integrator's options that this port does not
+    carry yet, naming the ROADMAP item of each."""
+    if mesh is not None:
+        _not_ported("the multi-device mesh", "15")
+    if checkpoint_dir is not None or max_chunks is not None:
+        _not_ported("checkpoint/resume", "12")
+    if dispatch_target_s is not None:
+        _not_ported("the adaptive per-dispatch fill budget", "14")
+
+
 def multi_nested_integrator(
     problem: Problem,
     cfg: Optional[RunConfig] = None,
@@ -135,12 +147,8 @@ def multi_nested_integrator(
     ).items() if v is not None}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    if mesh is not None:
-        _not_ported("the multi-device mesh", "15")
-    if checkpoint_dir is not None or max_chunks is not None:
-        _not_ported("checkpoint/resume", "12")
-    if dispatch_target_s is not None:
-        _not_ported("the adaptive per-dispatch fill budget", "14")
+    reject_unported(mesh=mesh, checkpoint_dir=checkpoint_dir,
+                    max_chunks=max_chunks, dispatch_target_s=dispatch_target_s)
     if cfg.eval_batch_max > cfg.eval_batch:
         _not_ported("eval-batch escalation (cfg.eval_batch_max)", "10")
     device = torch.device(device)

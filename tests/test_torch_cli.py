@@ -1,5 +1,5 @@
-"""CLI surface of the port: gen -> fit -> check, the device switch, and a
-fresh process that runs the port without importing JAX."""
+"""CLI surface of the port: gen -> fit -> check, musefit, the device
+switch, and a fresh process that runs the port without importing JAX."""
 
 import os
 import subprocess
@@ -50,11 +50,45 @@ def test_default_cuda_device_without_card_exits(tmp_path, monkeypatch):
 
 
 def test_unported_subcommands_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.main(["musefit", "cube.fits", "sel.reg", "0", "0.5", "t.txt"])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        cli.main(["refine", "data.hdf5", "out.hdf5"])
     with pytest.raises(NotImplementedError, match="item 12"):
         cli.main(["fit", "d.hdf5", "2", "--device", "cpu",
                   "--checkpoint-dir", str(tmp_path)])
+
+
+@pytest.fixture
+def tiny_cube(tmp_path, monkeypatch):
+    from massivedatans_tpu_torch.muse import synth
+
+    monkeypatch.chdir(tmp_path)
+    tpl = synth.make_template_files("tpl", n_wl=100)
+    synth.make_model_cube("cube.fits", "sel.reg", tpl, "truths.json",
+                          ny=2, nx=3, nspec=80, cd3=50.0)
+    return tpl
+
+
+def test_musefit_roundtrip(tiny_cube, capsys):
+    cli.main(["musefit", "cube.fits", "sel.reg", "0", "0.5", *tiny_cube,
+              "--device", "cpu", "--nlive", "30", "--max-samples", "80"])
+    out = "cube.fits_full_.out_6.hdf5"
+    with h5py.File(out) as f:
+        assert set(f.keys()) == SCHEMA | {"fiberids", "duration", "ndata"}
+        assert f["u"].shape[1:] == (6, 5) and f["logZ"].shape == (6,)
+        assert int(f["ndata"][()]) == 6 and len(f["fiberids"]) == 6
+    assert "logZ = " in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--checkpoint-dir", "ckpt"], "12"),
+    (["--devices", "2"], "15"),
+    (["--model-parallel", "2"], "15"),
+])
+def test_musefit_unported_options_raise(tiny_cube, flags, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        cli.main(["musefit", "cube.fits", "sel.reg", "0", "0.5", *tiny_cube,
+                  "--device", "cpu", *flags])
+    assert not any(p.endswith(".hdf5") for p in os.listdir("."))
 
 
 def test_run_fit_in_fresh_process_imports_no_jax():

@@ -165,7 +165,11 @@ def test_port_modules_import_no_jax_modules():
                "massivedatans_tpu.datagen", "massivedatans_tpu.datagen.generators",
                "massivedatans_tpu.io", "massivedatans_tpu.io.hdf5io",
                "massivedatans_tpu.utils", "massivedatans_tpu.utils.progress",
-               "massivedatans_tpu.ns", "massivedatans_tpu.ns.subsets"}
+               "massivedatans_tpu.ns", "massivedatans_tpu.ns.subsets",
+               "massivedatans_tpu.muse", "massivedatans_tpu.muse.fitsio",
+               "massivedatans_tpu.muse.regions",
+               "massivedatans_tpu.muse.pipeline",
+               "massivedatans_tpu.muse.synth"}
     pkg = os.path.join(ROOT, "massivedatans_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
         for f in files:

@@ -29,11 +29,11 @@ def _pallas():
     return pallas_neighbors, jnp
 
 
-def _count_case(seed, M, N, n_valid, r, lo=0.0, hi=1.0):
+def _count_case(seed, M, N, n_valid, r, lo=0.0, hi=1.0, ndim=3):
     rng = np.random.default_rng(seed)
-    members = rng.uniform(size=(M, 3)).astype(np.float32)
+    members = rng.uniform(size=(M, ndim)).astype(np.float32)
     mask = np.arange(M) < n_valid
-    pts = rng.uniform(lo, hi, size=(N, 3)).astype(np.float32)
+    pts = rng.uniform(lo, hi, size=(N, ndim)).astype(np.float32)
     return members, mask, pts, np.float32(r)
 
 
@@ -59,6 +59,25 @@ def test_count_within_plain_matches_pallas_and_scipy(M, N, n_valid, r, lo, hi):
     assert (np.abs(got - pallas) <= boundary).all()
 
 
+@pytest.mark.parametrize("ndim, r", [(4, 0.2), (5, 0.3)])
+def test_count_within_plain_matches_pallas_and_scipy_muse_ndim(ndim, r):
+    """MUSE runs the region at ndim 5 (FULL) and 4 (ZSOL): the main-path
+    shape, 256 points against 1,664 members."""
+    pallas_neighbors, jnp = _pallas()
+    members, mask, pts, r = _count_case(ndim, 1664, 256, 1500, r, ndim=ndim)
+    got = neighbors.count_within(torch.from_numpy(members),
+                                 torch.from_numpy(mask),
+                                 torch.from_numpy(pts), torch.tensor(r)).numpy()
+    pallas = np.asarray(pallas_neighbors.count_within_pallas(
+        jnp.asarray(members), jnp.asarray(mask), jnp.asarray(pts),
+        jnp.float32(r), interpret=True))
+    d = scipy.spatial.distance.cdist(pts, members[:1500])
+    boundary = (np.abs(d - r) < TIE).sum(axis=1)
+    assert (got > 0).any()
+    assert (np.abs(got - (d < r).sum(axis=1)) <= boundary).all()
+    assert (np.abs(got - pallas) <= boundary).all()
+
+
 def _oracle_radius(w, mask, inbag):
     d = scipy.spatial.distance.cdist(w, w) ** 2
     want = 0.0
@@ -74,6 +93,7 @@ def _oracle_radius(w, mask, inbag):
     (64, 2, 8, 50, False),
     (96, 3, 10, 80, True),
     (4096, 3, 10, 3500, False),
+    (1664, 5, 10, 1500, False),   # MUSE FULL at the member capacity
 ])
 def test_bootstrap_radius_plain_matches_pallas_and_oracle(M, ndim, nb, n_valid,
                                                           empty_round):
@@ -141,6 +161,44 @@ def test_bootstrap_radius_kernel_matches_plain_on_card(M):
 
     g = torch.Generator(device="cuda").manual_seed(M)
     w = torch.randn((M, 3), generator=g, device="cuda")
+    mask = torch.arange(M, device="cuda") < (M - M // 5)
+    inbag = bootstrap_inbag_rounds(mask, g, 10)
+    before = neighbors.bootstrapped_sq_radius.launches
+    got = neighbors.bootstrapped_sq_radius(w, mask, inbag)
+    torch.cuda.synchronize()
+    assert neighbors.bootstrapped_sq_radius.launches == before + 1
+    want = neighbors.bootstrapped_sq_radius_plain(w, mask, inbag)
+    assert float(got) > 0
+    assert torch.isclose(got, want, rtol=1e-5, atol=0.0), (got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1664, 16384])
+def test_count_within_kernel_matches_plain_on_card_ndim5(M):
+    """MUSE FULL's dimension (ZSOL has 4)."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(M + 5)
+    members = torch.randn((M, 5), generator=g, device="cuda")
+    mask = torch.arange(M, device="cuda") < (M - M // 7)
+    pts = 3.0 * (2.0 * torch.rand((256, 5), generator=g, device="cuda") - 1.0)
+    radius = torch.tensor(0.9, device="cuda")
+    before = neighbors.count_within.launches
+    got = neighbors.count_within(members, mask, pts, radius)
+    torch.cuda.synchronize()
+    assert neighbors.count_within.launches == before + 1
+    want = neighbors.count_within_plain(members, mask, pts, radius)
+    assert int(want.sum()) > 0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1664, 16384])
+def test_bootstrap_radius_kernel_matches_plain_on_card_ndim5(M):
+    _need_card()
+    from massivedatans_tpu_torch.ns.region import bootstrap_inbag_rounds
+
+    g = torch.Generator(device="cuda").manual_seed(M + 5)
+    w = torch.randn((M, 5), generator=g, device="cuda")
     mask = torch.arange(M, device="cuda") < (M - M // 5)
     inbag = bootstrap_inbag_rounds(mask, g, 10)
     before = neighbors.bootstrapped_sq_radius.launches
