@@ -24,20 +24,26 @@ Phases, each of which raises on failure:
 
 1. require ``torch.cuda.is_available()``; print the card's name and power
    limit; turn TF32 off and assert it;
-2. build the kernels with nvcc and print the build seconds;
-3. compare each kernel with its plain version at the horns shapes (ndim 3)
-   and the MUSE shapes (ndim 5), each also at M=16384; time both at the
-   main-path shapes with CUDA events over 200 launches;
+2. build the CUDA kernels (nvcc) and the host union-find (the host C++
+   compiler) at the same time and print the build seconds;
+3. hold each kernel bitwise against its plain version at ndim 3 (horns)
+   and 5 (MUSE FULL), at the member cap M=1664 and at M=16384, the radius
+   also at nb 3 and 32 (its generic instantiation); time each of those
+   eight cases (CUDA events and profiler device time, kernel and plain) and
+   print its bound (operations or bytes, from this run's inputs, against
+   the H100's published fp32 and memory rates); check in the profiler that
+   a call of either wrapper runs its kernel and nothing else (no
+   zero-fill);
 4. reset the launch counters, run the horns fit, read the counters (each
-   kernel must have launched), check the result's shapes, that logZ is
-   finite, and that >= 95 of the first 100 datasets lie within
-   3 logZerr + 0.5 of the quadrature oracle ``quad_logZ.json``;
-5. reset the counters, run the MUSE fit, read the counters (each kernel
-   must have launched), check the shapes, that logZ is finite with
-   logZerr > 0, and the no-star identity on the empty spaxels:
-   |median(logZ + yy/2)| <= 1;
-6. print one JSON line of kernel records, then the ``{"ok": true, ...}``
-   line last.
+   kernel must have launched, and ``count_within`` exactly once per region
+   proposal round), check the result's shapes, that logZ is finite, and
+   that >= 95 of the first 100 datasets lie within 3 logZerr + 0.5 of the
+   quadrature oracle ``quad_logZ.json``;
+5. reset the counters, run the MUSE fit, read the counters (as in 4),
+   check the shapes, that logZ is finite with logZerr > 0, and the no-star
+   identity on the empty spaxels: |median(logZ + yy/2)| <= 1;
+6. print one JSON line of kernel records, then the card's line, then the
+   ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
 package is missing.
@@ -52,6 +58,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -59,18 +66,19 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TIMING_LAUNCHES = 200
-COUNT_SHAPE = dict(N=256, M=1664, ndim=3)   # proposal_batch/2 x member cap
-RADIUS_SHAPE = dict(M=1664, ndim=3, nb=10)  # member cap x nbootstraps
-COUNT_SHAPE_MUSE = dict(COUNT_SHAPE, ndim=5)    # MUSE FULL
-RADIUS_SHAPE_MUSE = dict(RADIUS_SHAPE, ndim=5)
-LARGE_M = 16384
+TIMING_LAUNCHES_LARGE = 20   # M=16384: the plain radius is ~1 GB per round
+MAIN_M, LARGE_M = 1664, 16384  # member cap (2 x nlive 400 rounded up), large
+COUNT_N = 512     # proposal_batch: both halves of a round in one call
+NBOOT = 10        # RunConfig.nbootstraps
 MUSE_SIDE, MUSE_NSPEC, MUSE_SEED = 10, 3600, 11  # tools/muse_validate.py
 MUSE_FLUX = (0.1, 1.0)
 PROFILE_SAMPLES, PROFILE_SAMPLES_MUSE = 300, 2000  # the MUSE fit's costly
 # rounds come late: it reaches 2,000 iterations in about 30 s on the H100
 EMPTY_IDENTITY_BAR = 1.0  # |median(logZ + yy/2)| over empty spaxels
-RADIUS_RTOL = 1e-5
-TIE_BAND = 1e-4  # |d - r| below which a count may differ (f32 vs f64)
+# NVIDIA H100 SXM data sheet, at its 700 W limit: fp32 outside the tensor
+# cores (neither kernel has work for them) and HBM3
+PEAK_FP32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
 
 
@@ -89,17 +97,33 @@ def _time_ms(fn, n=TIMING_LAUNCHES):
 
 def _device_ms(fn, n=TIMING_LAUNCHES):
     """Device time per call: the summed duration of the CUDA kernels that
-    ``n`` calls launch, from a profiler trace (host gaps excluded)."""
+    ``n`` calls launch, from a profiler trace (host gaps excluded).
+
+    The trace on the card now and then loses kernel records. Every call
+    launches the same kernels, so a whole trace holds each kernel a
+    multiple of ``n`` times; a trace that does not is taken again. After
+    five such traces, each kernel's mean duration times its launches per
+    call (its count over ``n``, rounded) stands in, with a warning."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch_profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return _kernel_us(prof.key_averages()) / n / 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(5):
+        with torch_profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.count, e.self_device_time_total)
+                   for e in prof.key_averages() if e.device_type == cuda]
+        if kernels and all(c % n == 0 for c, _ in kernels):
+            return sum(us for _, us in kernels) / n / 1e3
+    if not kernels:
+        raise RuntimeError("five profiler traces held no device kernels")
+    print(f"  warning: 5 traces lost kernel records; device time from the "
+          f"mean kernel durations of the last ({kernels})")
+    return sum(us / c * max(1, round(c / n)) for c, us in kernels) / 1e3
 
 
 def _kernel_us(events):
@@ -110,14 +134,25 @@ def _kernel_us(events):
                if e.device_type == cuda)
 
 
-def _timed(rec, kernel, plain):
+def _timed(rec, kernel, plain, n):
     """Host-clock CUDA-event time and device time per call, in turns."""
-    rec["ms"] = _time_ms(kernel)
-    rec["plain_ms"] = _time_ms(plain)
-    rec["device_ms"] = _device_ms(kernel)
-    rec["plain_device_ms"] = _device_ms(plain)
+    rec["ms"] = _time_ms(kernel, n)
+    rec["plain_ms"] = _time_ms(plain, n)
+    rec["device_ms"] = _device_ms(kernel, n)
+    rec["plain_device_ms"] = _device_ms(plain, n)
+    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
     print("  timing", json.dumps({k: rec[k] for k in (
-        "ms", "plain_ms", "device_ms", "plain_device_ms")}))
+        "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
+        "bound_by", "bound_share")}))
+
+
+def _bound(rec, ops, nbytes):
+    """The least time of the work on the card: the larger of its operations
+    over the fp32 rate and its bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    rec.update(ops=ops, bytes=nbytes, bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_count_within(neighbors, gen, N, M, ndim, timed=False):
@@ -125,23 +160,26 @@ def check_count_within(neighbors, gen, N, M, ndim, timed=False):
     members = torch.randn((M, ndim), generator=gen, device=dev)
     mask = torch.arange(M, device=dev) < (M - M // 7)  # non-divisible count
     points = 3.0 * (2.0 * torch.rand((N, ndim), generator=gen, device=dev) - 1.0)
-    radius = torch.tensor(0.45, device=dev)
+    # points meet a few members each at ndim 3 and 5
+    radius = torch.tensor(0.25 * ndim, device=dev)
     got = neighbors.count_within(members, mask, points, radius)
     want = neighbors.count_within_plain(members, mask, points, radius)
     torch.cuda.synchronize()
-    d = torch.cdist(points.double(), members.double())
-    ties = ((d - radius.double()).abs() < TIE_BAND)[:, mask].sum(dim=1)
     diff = (got.long() - want.long()).abs()
-    bad = int((diff > ties).sum())
     rec = dict(shape=f"N={N} M={M} ndim={ndim}", max_abs_err=int(diff.max()),
-               mismatches_outside_tie_band=bad,
-               exact_equal=bool(torch.equal(got, want)))
+               mismatches=int((diff > 0).sum()), counted=int(want.sum()))
+    # per pair of a point and a valid member: ndim subtractions, ndim
+    # squares, ndim - 1 additions, one compare, one masked add
+    n_valid = int(mask.sum())
+    _bound(rec, ops=N * n_valid * (3 * ndim + 1),
+           nbytes=4 * (N + M) * ndim + M + 4 + 4 * N)
     print("count_within", json.dumps(rec))
     assert got.shape == (N,) and got.dtype == torch.int32
-    assert bad == 0, rec
+    assert rec["mismatches"] == 0 and rec["counted"] > 0, rec  # bitwise
     if timed:
         _timed(rec, lambda: neighbors.count_within(members, mask, points, radius),
-               lambda: neighbors.count_within_plain(members, mask, points, radius))
+               lambda: neighbors.count_within_plain(members, mask, points, radius),
+               TIMING_LAUNCHES if M <= MAIN_M else TIMING_LAUNCHES_LARGE)
     return rec
 
 
@@ -156,14 +194,85 @@ def check_radius(neighbors, region, gen, M, ndim, nb, timed=False):
     err = abs(float(got) - float(want))
     rec = dict(shape=f"M={M} ndim={ndim} nb={nb}", got=float(got),
                want=float(want), max_abs_err=err)
+    # what this run's inputs need: a distance (3 ndim - 1 operations) for
+    # each row and each column in some bag, and a select and a min for each
+    # row and each (column, round) in the bag
+    cols = int(inbag.any(dim=0).sum())
+    _bound(rec, ops=M * cols * (3 * ndim - 1) + 2 * M * int(inbag.sum()),
+           nbytes=4 * M * ndim + M + nb * M + 4)
     print("bootstrapped_sq_radius", json.dumps(rec))
     assert got.shape == () and got.dtype == torch.float32
     assert np.isfinite(float(got)) and float(got) > 0, rec
-    assert err <= RADIUS_RTOL * abs(float(want)), rec
+    assert err == 0.0, rec  # bitwise
     if timed:
         _timed(rec, lambda: neighbors.bootstrapped_sq_radius(w, mask, inbag),
-               lambda: neighbors.bootstrapped_sq_radius_plain(w, mask, inbag))
+               lambda: neighbors.bootstrapped_sq_radius_plain(w, mask, inbag),
+               TIMING_LAUNCHES if M <= MAIN_M else TIMING_LAUNCHES_LARGE)
     return rec
+
+
+def check_launch_alone(neighbors, region, gen):
+    """A profiled call of either wrapper runs its own kernel and nothing
+    else on the device: no zero-fill launch before it."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    members = torch.randn((MAIN_M, 3), generator=gen, device=DEVICE)
+    mask = torch.ones(MAIN_M, dtype=torch.bool, device=DEVICE)
+    points = torch.rand((COUNT_N, 3), generator=gen, device=DEVICE)
+    radius = torch.tensor(0.3, device=DEVICE)
+    inbag = region.bootstrap_inbag_rounds(mask, gen, NBOOT)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            neighbors.count_within(members, mask, points, radius)
+            neighbors.bootstrapped_sq_radius(members, mask, inbag)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0}
+    print("device work of 10 calls of each wrapper:", json.dumps(kernels))
+    # the trace may miss a launch, never invent one: our two kernels, and
+    # no other device work (a fill, a copy)
+    assert len(kernels) == 2, kernels
+    assert all("count_within" in k or "bootstrap_radius" in k
+               for k in kernels), kernels
+
+
+def _count_rounds(region):
+    """Wrap ``region.sample_region`` (which the strategies call once per
+    region proposal round) with a counter; returns the counter list."""
+    rounds = []
+    sample = region.sample_region
+
+    def counted(*a, **k):
+        rounds.append(1)
+        return sample(*a, **k)
+
+    region.sample_region = counted
+    return rounds
+
+
+def _build_all(_build):
+    """Both native libraries, built at the same time; returns seconds."""
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(fn,))
+               for fn in (_build.load, _build.load_host)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
 
 
 def main(argv=None):
@@ -187,11 +296,10 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from massivedatans_tpu.config import RunConfig
-    from massivedatans_tpu.datagen.generators import gen_horns
     from massivedatans_tpu_torch.cli import run_fit
-    from massivedatans_tpu_torch.config import set_fp32_precision
-    from massivedatans_tpu_torch.ns import region
+    from massivedatans_tpu_torch.config import RunConfig, set_fp32_precision
+    from massivedatans_tpu_torch.datagen.generators import gen_horns
+    from massivedatans_tpu_torch.ns import region, subsets
     from massivedatans_tpu_torch.ops import _build, neighbors
 
     # --- phase 1: the card ---
@@ -205,34 +313,52 @@ def main(argv=None):
     assert torch.backends.cudnn.allow_tf32 is False
 
     # --- phase 2: build ---
-    t0 = time.perf_counter()
-    _build.load()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"({os.path.relpath(_build.library_path(), ROOT)})")
+    build_s = _build_all(_build)
+    print(f"build of both libraries, in parallel: {build_s:.2f} s "
+          f"({os.path.relpath(_build.library_path(), ROOT)}, "
+          f"{os.path.relpath(_build.host_library_path(), ROOT)})")
+    assert subsets._load_native() is not None  # native labels on the path
 
     # --- phase 3: kernels vs plain versions ---
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    cw = check_count_within(neighbors, gen, **COUNT_SHAPE, timed=True)
-    check_count_within(neighbors, gen, **dict(COUNT_SHAPE, M=LARGE_M))
-    rr = check_radius(neighbors, region, gen, **RADIUS_SHAPE, timed=True)
-    check_radius(neighbors, region, gen, **dict(RADIUS_SHAPE, M=LARGE_M))
-    cw5 = check_count_within(neighbors, gen, **COUNT_SHAPE_MUSE, timed=True)
-    check_count_within(neighbors, gen, **dict(COUNT_SHAPE_MUSE, M=LARGE_M))
-    rr5 = check_radius(neighbors, region, gen, **RADIUS_SHAPE_MUSE, timed=True)
-    check_radius(neighbors, region, gen, **dict(RADIUS_SHAPE_MUSE, M=LARGE_M))
+    timed = {"count_within": {}, "bootstrapped_sq_radius": {}}
+    for ndim in (3, 5):  # horns, MUSE FULL
+        for M in (MAIN_M, LARGE_M):
+            timed["count_within"][(M, ndim)] = check_count_within(
+                neighbors, gen, COUNT_N, M, ndim, timed=True)
+            timed["bootstrapped_sq_radius"][(M, ndim)] = check_radius(
+                neighbors, region, gen, M, ndim, NBOOT, timed=True)
+    for nb in (3, 32):  # the generic instantiation
+        check_radius(neighbors, region, gen, MAIN_M, 3, nb)
+    check_launch_alone(neighbors, region, gen)
+
+    rounds = _count_rounds(region)
+
+    def reset_counts():
+        neighbors.count_within.launches = 0
+        neighbors.bootstrapped_sq_radius.launches = 0
+        rounds.clear()
+
+    def read_counts():
+        counts = dict(count_within=neighbors.count_within.launches,
+                      bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
+                      region_rounds=len(rounds))
+        assert counts["count_within"] > 0, counts
+        assert counts["bootstrapped_sq_radius"] > 0, counts
+        # one count launch per region proposal round, nothing else
+        assert counts["count_within"] == counts["region_rounds"], counts
+        return counts
 
     # --- phase 4: the horns path ---
     cfg = RunConfig()
     data = gen_horns(1000)
-    neighbors.count_within.launches = 0
-    neighbors.bootstrapped_sq_radius.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = run_fit(data["x"], data["y"], cfg, DEVICE, noise_level=data["noise_level"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(count_within=neighbors.count_within.launches,
-                    bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches)
+    launches = read_counts()
     print(json.dumps(dict(
         fit=f"horns ndata={data['y'].shape[1]} nlive={cfg.nlive_points}",
         wall_s=wall, niter=result.niterations, ndraws=result.ndraws,
@@ -240,7 +366,6 @@ def main(argv=None):
         member_overflow=result.stats["member_overflow"],
         timing=result.stats["timing"],
         peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)))
-    assert all(n > 0 for n in launches.values()), launches
     D, K = data["y"].shape[1], cfg.nlive_points
     rows = result.niterations + K
     assert result.u.shape == (rows, D, 3), result.u.shape
@@ -260,8 +385,10 @@ def main(argv=None):
 
     # --- phase 5: the MUSE path ---
     with tempfile.TemporaryDirectory() as tmp:
-        muse_launches, muse_fit = muse_phase(neighbors, args.muse_max_samples,
-                                             tmp)
+        reset_counts()
+        muse_fit = muse_phase(args.muse_max_samples, tmp)
+        muse_launches = read_counts()
+        print("MUSE launches:", json.dumps(muse_launches))
         if args.profile_out:
             profile(lambda: run_fit(data["x"], data["y"], dataclasses.replace(
                 cfg, max_samples=PROFILE_SAMPLES), DEVICE,
@@ -272,23 +399,28 @@ def main(argv=None):
 
     # --- phase 6: records ---
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
-    print(json.dumps({"kernels": [
-        dict(name="count_within", route="cuda", source=src,
-             replaces="massivedatans_tpu/ops/pallas_neighbors.py:69",
-             launches=launches["count_within"], max_abs_err=cw["max_abs_err"],
-             ms=cw["ms"], plain_ms=cw["plain_ms"],
-             launches_muse=muse_launches["count_within"],
-             max_abs_err_ndim5=cw5["max_abs_err"], ms_ndim5=cw5["ms"],
-             plain_ms_ndim5=cw5["plain_ms"]),
-        dict(name="bootstrapped_sq_radius", route="cuda", source=src,
-             replaces="massivedatans_tpu/ops/pallas_neighbors.py:158",
-             launches=launches["bootstrapped_sq_radius"],
-             max_abs_err=rr["max_abs_err"], ms=rr["ms"],
-             plain_ms=rr["plain_ms"],
-             launches_muse=muse_launches["bootstrapped_sq_radius"],
-             max_abs_err_ndim5=rr5["max_abs_err"], ms_ndim5=rr5["ms"],
-             plain_ms_ndim5=rr5["plain_ms"]),
-    ]}))
+    replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
+                "bootstrapped_sq_radius":
+                    "massivedatans_tpu/ops/pallas_neighbors.py:158"}
+    keys = ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
+            "bound_by", "bound_share", "max_abs_err")
+    records = []
+    for name, recs in timed.items():
+        main_rec = recs[(MAIN_M, 3)]  # the horns main-path shape
+        records.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces[name],
+            launches=launches[name], launches_muse=muse_launches[name],
+            region_rounds=launches["region_rounds"],
+            region_rounds_muse=muse_launches["region_rounds"],
+            max_abs_err=max(r["max_abs_err"] for r in recs.values()),
+            ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
+            device_ms=main_rec["device_ms"], bound_ms=main_rec["bound_ms"],
+            bound_by=main_rec["bound_by"],
+            # no single PyTorch call computes either function
+            library_ms=None,
+            shapes={r["shape"]: {k: r[k] for k in keys}
+                    for r in recs.values()}))
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -296,11 +428,10 @@ def main(argv=None):
     return 0
 
 
-def muse_phase(neighbors, max_samples, tmp):
-    """Build the MUSE fixture in ``tmp``, fit it with the launch counters
-    reset, check the result; returns the launch counts of the fit and a
-    ``fit(max_samples)`` callable for the profiler."""
-    from massivedatans_tpu.config import RunConfig
+def muse_phase(max_samples, tmp):
+    """Build the MUSE fixture in ``tmp``, fit it, check the result; returns
+    a ``fit(max_samples)`` callable for the profiler."""
+    from massivedatans_tpu_torch.config import RunConfig
     from massivedatans_tpu_torch.muse import synth
     from massivedatans_tpu_torch.muse.pipeline import fit_muse, load_muse_cube
 
@@ -326,16 +457,12 @@ def muse_phase(neighbors, max_samples, tmp):
                         dataclasses.replace(cfg, max_samples=cap),
                         device=DEVICE, progress=cap == max_samples)
 
-    neighbors.count_within.launches = 0
-    neighbors.bootstrapped_sq_radius.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result, problem = fit(max_samples)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(count_within=neighbors.count_within.launches,
-                    bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches)
     empty = np.asarray(truths["empty"], bool)[:n]
     yy = np.asarray(truths["yy"], np.float64)[:n]
     identity = result.logZ[empty] + yy[empty] / 2
@@ -345,19 +472,18 @@ def muse_phase(neighbors, max_samples, tmp):
             f"nlive={cfg.nlive_points} max_samples={max_samples}",
         fixture_s=fixture_s, wall_s=wall, niter=result.niterations,
         ndraws=result.ndraws, fill_rounds=result.stats["fill_rounds"],
-        launches=launches, member_overflow=result.stats["member_overflow"],
+        member_overflow=result.stats["member_overflow"],
         stalled=result.stats["stalled"], timing=result.stats["timing"],
         peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9,
         n_empty=int(empty.sum()), median_logZ_plus_half_yy=med,
         max_abs_logZ_plus_half_yy=float(np.abs(identity).max(initial=0.0)))))
-    assert all(k > 0 for k in launches.values()), launches
     rows = result.niterations + cfg.nlive_points
     assert result.u.shape == (rows, n, 5), result.u.shape
     assert result.x.shape == (rows, n, 5) and result.L.shape == (rows, n)
     assert result.logZ.shape == (n,) and np.isfinite(result.logZ).all()
     assert (result.logZerr > 0).all()
     assert empty.any() and abs(med) <= EMPTY_IDENTITY_BAR, med
-    return launches, fit
+    return fit
 
 
 def profile(fit, path):

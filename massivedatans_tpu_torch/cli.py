@@ -8,8 +8,8 @@
 Same arguments, environment knobs and output files as
 ``python -m massivedatans_tpu`` (reference ``sample.py``), plus
 ``--device`` (default ``cuda``). The data generators and the HDF5 schema
-are the JAX package's numpy-only modules, so both packages read and write
-the same files. ``fit`` is a thin wrapper around ``run_fit``, which takes
+are this package's copies of the JAX package's (``datagen/generators.py``,
+``io/hdf5io.py``), so both packages read and write the same files. ``fit`` is a thin wrapper around ``run_fit``, which takes
 arrays in memory; ``musefit`` wraps ``muse.pipeline.run_musefit``.
 """
 
@@ -22,7 +22,7 @@ import sys
 import numpy as np
 import torch
 
-from massivedatans_tpu.config import RunConfig
+from massivedatans_tpu_torch.config import RunConfig
 
 
 def run_fit(x, y, cfg: RunConfig, device, noise_level: float = 0.01,
@@ -51,7 +51,7 @@ def _resolve_device(name: str) -> torch.device:
 
 
 def cmd_gen(args):
-    from massivedatans_tpu.datagen.generators import (
+    from massivedatans_tpu_torch.datagen.generators import (
         FILENAME_STEMS, GENERATORS, save_dataset,
     )
 
@@ -79,7 +79,7 @@ def _not_ported_cmd(name, item):
 
 
 def cmd_fit(args):
-    from massivedatans_tpu.io.hdf5io import (
+    from massivedatans_tpu_torch.io.hdf5io import (
         load_spectra, output_prefix, write_results,
     )
 
@@ -135,7 +135,7 @@ def cmd_musefit(args):
 
 def cmd_check(args):
     """Summarize an output file (reference checkoutput.py:8-42)."""
-    from massivedatans_tpu.io.hdf5io import read_results
+    from massivedatans_tpu_torch.io.hdf5io import read_results
 
     rng = np.random.default_rng(args.seed)
     for path in args.files:

@@ -1,8 +1,11 @@
 """MUSE datacube pipeline (reference ``musefuse.py`` driver).
 
 Counterpart of ``massivedatans_tpu/muse/pipeline.py``. Cube loading, region
-selection and noise screening are the JAX package's numpy-only
-``load_muse_cube``. The fit is in two layers:
+selection and noise screening (``MuseCube``, ``BAD_WINDOWS``,
+``screen_noise_outliers``, ``load_muse_cube``) are copies of the JAX
+package's numpy code: load a FITS cube (DATA flux + STAT variance), select
+spaxels by a ds9 region, screen bad spaxels and inflate the noise in known
+bad wavelength windows. The fit is in two layers:
 
 - ``fit_muse`` fits a loaded cube in memory and writes nothing, so it runs
   where h5py is not installed;
@@ -13,19 +16,104 @@ selection and noise screening are the JAX package's numpy-only
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+
 import numpy as np
 
-from massivedatans_tpu.config import RunConfig
-from massivedatans_tpu.muse.pipeline import MuseCube, load_muse_cube
-from massivedatans_tpu_torch.config import set_fp32_precision
+from massivedatans_tpu_torch.config import RunConfig, set_fp32_precision
+from massivedatans_tpu_torch.io.hdf5io import write_results
+from massivedatans_tpu_torch.muse.fitsio import fits_open, get_hdu
 from massivedatans_tpu_torch.muse.likelihood import make_muse_problem
 from massivedatans_tpu_torch.muse.model import load_template_grid
+from massivedatans_tpu_torch.muse.regions import parse_region_mask
 from massivedatans_tpu_torch.ns.integrator import (
     multi_nested_integrator,
     reject_unported,
 )
 
+log = logging.getLogger("massivedatans_tpu_torch")
+
 MODELS = ("FULL", "ZSOL")
+
+# wavelength windows with known sky-subtraction residuals; the noise there is
+# inflated so they are effectively masked (musefuse.py:130-134)
+BAD_WINDOWS = [(1600, 1670), (1730, 1780), (1950, 2000),
+               (2250, 2700), (2800, 3000)]
+
+
+@dataclasses.dataclass
+class MuseCube:
+    wavelength_nm: np.ndarray  # [nspec]
+    y: np.ndarray              # [nspec, D]
+    var: np.ndarray            # [nspec, D]
+    goodids: np.ndarray        # [D] spaxel ids within the region selection
+    mask_shape: tuple          # (ny, nx) of the field
+    region_mask: np.ndarray    # [ny, nx]
+
+    def flat_positions(self) -> np.ndarray:
+        """Flat (ny*nx) field positions of the fitted spaxels, for maps."""
+        return np.where(self.region_mask.ravel())[0][self.goodids]
+
+
+def screen_noise_outliers(var: np.ndarray, window: int = 10,
+                          nsigma: float = 5.0) -> np.ndarray:
+    """Rolling-median variance screening (musefuse.py:113-129; the reference
+    computes this but ships with it disabled — enable via pipeline flag)."""
+    nspec = var.shape[0]
+    out = var.copy()
+    for j in range(nspec):
+        lo, hi = max(0, j - window), min(nspec, j + window)
+        seg = var[lo:hi]
+        med = np.median(seg, axis=0)
+        meddiff = np.median(np.abs(med[None, :] - seg), axis=0)
+        bad = np.abs(var[j] - med) > nsigma * meddiff
+        if bad.any():
+            out[max(0, j - 3):min(nspec, j + 4), bad] += 1e10
+    return out
+
+
+def load_muse_cube(cube_path: str, region_path: str | None = None,
+                   maxdata: int = 0, nspec_max: int = 3600,
+                   screen_outliers: bool = False,
+                   bad_windows=None) -> MuseCube:
+    hdus = fits_open(cube_path)
+    data_hdu = get_hdu(hdus, "DATA")
+    stat_hdu = get_hdu(hdus, "STAT")
+    y = np.asarray(data_hdu.data, np.float64)[:nspec_max]
+    var = np.asarray(stat_hdu.data, np.float64)[:nspec_max]
+    nspec, ny, nx = y.shape
+    wavelength = (
+        float(data_hdu.header.get("CD3_3", 1.25)) * np.arange(nspec)
+        + float(data_hdu.header.get("CRVAL3", 4750.0))
+    ) / 10.0  # Angstrom -> nm (musefuse.py:89,255)
+
+    if region_path is not None:
+        with open(region_path) as fh:
+            mask = parse_region_mask(fh.read(), (ny, nx))
+    else:
+        mask = np.ones((ny, nx), bool)
+
+    y = y.reshape(nspec, -1)[:, mask.ravel()]
+    var = var.reshape(nspec, -1)[:, mask.ravel()]
+    good = np.isfinite(var).all(axis=0)  # musefuse.py:92-95
+    goodids = np.where(good)[0]
+    if maxdata:
+        goodids = goodids[:maxdata]
+    y = y[:, goodids]
+    var = var[:, goodids]
+    assert (var > 0).all(), "non-positive variances in STAT"
+
+    if screen_outliers:
+        var = screen_noise_outliers(var)
+    for lo, hi in (bad_windows if bad_windows is not None else BAD_WINDOWS):
+        if lo < nspec:
+            var[lo:min(hi, nspec)] += 1e10
+
+    log.info("MUSE cube: %d spectral bins, %d/%d spaxels selected",
+             nspec, len(goodids), mask.sum())
+    return MuseCube(wavelength_nm=wavelength, y=y, var=var,
+                    goodids=goodids, mask_shape=(ny, nx), region_mask=mask)
 
 
 def fit_muse(cube: MuseCube, template_files, zlo: float, zhi: float,
@@ -80,8 +168,6 @@ def run_musefit(cube_path: str, region_path: str, zlo: float, zhi: float,
         suffix = "_zsol_" if model == "ZSOL" else "_full_"
         out_prefix = f"{cube_path}{suffix}.out_{problem.ndata}"
     import h5py
-
-    from massivedatans_tpu.io.hdf5io import write_results
 
     write_results(out_prefix, result)
     # extra MUSE datasets (musefuse.py:661-663)

@@ -1,29 +1,59 @@
 """Synthetic MUSE fixtures: template library, datacube and region file.
 
-``make_template_files`` and ``make_synthetic_cube`` are the JAX package's
-numpy-only functions (``massivedatans_tpu/muse/synth.py``), re-exported.
-``make_model_cube`` is its counterpart with this package's
-``predict_batch``, so the model-family cube can be built where JAX is not
-installed.
+Counterpart of ``massivedatans_tpu/muse/synth.py``: the pipeline runs
+end to end without proprietary data. ``make_template_files`` and
+``make_synthetic_cube`` are copies of the JAX package's numpy functions
+(same draws, same file bytes); ``make_model_cube`` uses this package's
+``predict_batch``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 
 import numpy as np
 import torch
 
-from massivedatans_tpu.muse.fitsio import fits_write
-from massivedatans_tpu.muse.synth import (  # noqa: F401
-    make_synthetic_cube,
-    make_template_files,
-)
+from massivedatans_tpu_torch.muse.fitsio import fits_write
 from massivedatans_tpu_torch.muse.model import (
     _SFTAU_GRID,
     load_template_grid,
     predict_batch,
 )
+
+
+def make_template_files(dirpath: str, n_ages: int = 111, n_wl: int = 400,
+                        nZ: int = 7, seed: int = 0):
+    """Plausible smooth SSP-like templates: blackbody-ish continua whose
+    temperature falls with age, bluer for lower metallicity.
+
+    The default ``n_ages=111`` matches the reference BC03 grid
+    (``model.REFERENCE_AGES[::2]``, musefuse.py:190) so the files load
+    without an explicit ages list. For other column counts an ``ages.txt``
+    (geometric grid) is written alongside, to pass as ``--ages-file``.
+    """
+    rng = np.random.default_rng(seed)
+    wl_A = np.linspace(3000.0, 9000.0, n_wl)  # Angstrom
+    files = []
+    os.makedirs(dirpath, exist_ok=True)
+    if n_ages != 111:
+        ages = np.concatenate([[0.0], np.geomspace(1e5, 2e10, n_ages - 1)])
+        np.savetxt(os.path.join(dirpath, "ages.txt"), ages)
+    for iz in range(nZ):
+        cols = [wl_A]
+        for a in range(n_ages):
+            # keep the same temperature span regardless of grid length
+            temp = 12000.0 * (0.97 ** (a * 24.0 / n_ages)) * (1.0 + 0.05 * iz)
+            x = 1.43878e8 / (wl_A * temp)  # hc/(k lambda T), Angstrom*K
+            planck = 1.0 / (wl_A ** 5 * np.expm1(np.clip(x, 1e-3, 50.0)))
+            bump = 1.0 + 0.3 * np.exp(
+                -0.5 * ((wl_A - 4000 - 50 * a) / 300.0) ** 2)
+            cols.append(planck * bump / planck.max())
+        path = os.path.join(dirpath, f"ssp_Z{iz}.txt")
+        np.savetxt(path, np.column_stack(cols))
+        files.append(path)
+    return files
 
 
 def make_model_cube(path: str, region_path: str, template_files,
@@ -96,3 +126,29 @@ def make_model_cube(path: str, region_path: str, template_files,
             "yy": yy.tolist(),
         }, fh)
     return path, region_path, truths_path
+
+
+def make_synthetic_cube(path: str, region_path: str, nspec: int = 300,
+                        ny: int = 8, nx: int = 8, seed: int = 1,
+                        noise: float = 0.05):
+    """FITS cube with DATA/STAT extensions and a circular ds9 region."""
+    rng = np.random.default_rng(seed)
+    crval3, cd3 = 4750.0, (9000.0 - 4750.0) / nspec
+    wl = crval3 + cd3 * np.arange(nspec)
+    cont = 1.0 / (wl / 6000.0) ** 2
+    cube = np.zeros((nspec, ny, nx), np.float32)
+    for j in range(ny):
+        for i in range(nx):
+            amp = rng.uniform(0.5, 2.0)
+            slope = rng.uniform(-0.3, 0.3)
+            spec = amp * cont * (1 + slope * (wl - 6000) / 6000)
+            cube[:, j, i] = spec + rng.normal(0, noise, nspec)
+    stat = np.full((nspec, ny, nx), noise ** 2, np.float32)
+    # a few NaN spaxels to exercise screening (musefuse.py:92-95)
+    stat[:, 0, 0] = np.nan
+    fits_write(path, {"DATA": cube, "STAT": stat},
+               extra_cards={"CRVAL3": crval3, "CD3_3": cd3})
+    with open(region_path, "w") as fh:
+        fh.write("# Region file format: DS9\nimage\n")
+        fh.write(f"circle({nx/2:.1f},{ny/2:.1f},{max(nx,ny)/2:.1f})\n")
+    return path, region_path

@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from massivedatans_tpu.config import RunConfig
+from massivedatans_tpu_torch.config import RunConfig, require_run_config
 from massivedatans_tpu_torch.models.base import Problem
 from massivedatans_tpu_torch.ns import shelves as shelves_lib
 from massivedatans_tpu_torch.ns.region import Region, ball_offsets, uniform_choice
@@ -193,6 +193,7 @@ def ledger_constant(nlive: int, device):
 def init_state(problem: Problem, generator, cfg: RunConfig) -> EngineState:
     """Draw the initial live points, shared across all datasets
     (multi_nested_sampler.py:91-104: the same u serves every dataset)."""
+    require_run_config(cfg)
     device = problem.device
     K, D, ndim = cfg.nlive_points, problem.ndata, problem.ndim
     P = cfg.resolve_pile_capacity(D)
@@ -598,6 +599,7 @@ def run_chunk(problem: Problem, state: EngineState, cfg: RunConfig,
     as a host loop). Returns ``(state, dead, rows)`` with the first ``rows``
     rows of ``dead`` written.
     """
+    require_run_config(cfg)
     if strategy is None:
         from massivedatans_tpu_torch.ns.strategies import make_strategy
 

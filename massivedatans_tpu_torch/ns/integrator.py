@@ -24,12 +24,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from massivedatans_tpu.config import RunConfig
-from massivedatans_tpu.utils.progress import ProgressReporter
+from massivedatans_tpu_torch.config import RunConfig, require_run_config
 from massivedatans_tpu_torch.models.base import Problem
 from massivedatans_tpu_torch.ns import engine as engine_lib
+from massivedatans_tpu_torch.ns import subsets as subsets_lib
 from massivedatans_tpu_torch.ns.engine import EngineState
 from massivedatans_tpu_torch.ns.strategies import make_strategy
+from massivedatans_tpu_torch.utils.progress import ProgressReporter
 
 log = logging.getLogger("massivedatans_tpu_torch")
 
@@ -141,7 +142,7 @@ def multi_nested_integrator(
     ``dispatch_target_s`` and ``cfg.eval_batch_max`` are options of the JAX
     integrator that this port does not carry yet; they raise.
     """
-    cfg = cfg or RunConfig()
+    cfg = require_run_config(cfg or RunConfig())
     overrides = {k: v for k, v in dict(
         tolerance=tolerance, max_samples=max_samples, min_samples=min_samples,
     ).items() if v is not None}
@@ -235,8 +236,6 @@ def multi_nested_integrator(
             resolve_pending(state, ps)  # indices reference the old pile
             state = compact_pile(state)
         if running.any() and "live_idx" in rep:
-            from massivedatans_tpu.ns import subsets as subsets_lib
-
             labels, n_groups = subsets_lib.component_labels(
                 rep["live_idx"], selected=running, nlive_points=K)
             state = state.replace(

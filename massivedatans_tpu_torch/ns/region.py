@@ -225,6 +225,12 @@ def sample_region(region: Region, generator, nprop: int,
     Half the batch uses the whitened-bounding-box proposal, half the
     ball-around-random-member proposal with the 1/n_near multiplicity
     correction (radfriendsregion.py:129-182). Returns ``(u, ok)``.
+
+    Both halves are counted in one ``count_within`` call over the joined
+    batch (one kernel launch per round on the card). The count draws no
+    random numbers, so the generator's order stays box ``rand``, member
+    ``multinomial``, direction ``randn``, radius ``rand``, coin ``rand``,
+    that of counting each half on its own: a seed gives the same ``(u, ok)``.
     """
     device = region.members_w.device
     ndim = region.members_w.shape[1]
@@ -234,18 +240,18 @@ def sample_region(region: Region, generator, nprop: int,
     # --- box proposals ---
     w_box = region.lo + (region.hi - region.lo) * torch.rand(
         (n_box, ndim), generator=generator, device=device)
-    ok_box = count_within(region, w_box, norm=norm) > 0
 
     # --- ball proposals ---
     mem = uniform_choice(region.member_mask, n_ball, generator)
     center = region.members_w[mem]
     w_ball = center + ball_offsets(generator, n_ball, ndim, region.radius,
                                    norm=norm)
-    nnear = count_within(region, w_ball, norm=norm)
     coin = torch.rand((n_ball,), generator=generator, device=device)
-    ok_ball = coin * nnear.to(coin.dtype) < 1.0  # accept w.p. 1/nnear
 
     w_all = torch.cat([w_box, w_ball], dim=0)
+    nnear = count_within(region, w_all, norm=norm)
+    ok_box = nnear[:n_box] > 0
+    ok_ball = coin * nnear[n_box:].to(coin.dtype) < 1.0  # accept w.p. 1/nnear
     ok = torch.cat([ok_box, ok_ball], dim=0)
     u = region.metric.untransform(w_all)
     in_cube = torch.all((u > 0.0) & (u < 1.0), dim=1)

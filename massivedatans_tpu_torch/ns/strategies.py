@@ -18,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from massivedatans_tpu.config import RunConfig
+from massivedatans_tpu_torch.config import RunConfig, require_run_config
 from massivedatans_tpu_torch.ns import region as region_lib
 
 
@@ -67,6 +67,7 @@ def make_mlfriends(cfg: RunConfig, norm: str = "euclidean",
 
 def make_strategy(cfg: RunConfig) -> Strategy:
     """Resolve cfg.constrainer (reference CONSTRAINER env, sample.py:131)."""
+    require_run_config(cfg)
     name = cfg.constrainer.upper()
     if name == "MLFRIENDS":
         return make_mlfriends(cfg)

@@ -10,7 +10,9 @@ Each public function dispatches on the device of its tensors:
 - a CUDA tensor launches the hand-written kernel of ``csrc/neighbors.cu``
   (built on first use by ``ops/_build.py``) on the current stream, or
   raises — on a build failure, a launch failure or an input the kernel does
-  not take. There is no fallback to the plain version;
+  not take. There is no fallback to the plain version. Each call is one
+  launch: outputs are ``torch.empty`` (the kernels write every element),
+  and the radius kernel's merge workspace resets itself;
 - a CPU tensor runs the plain version (``*_plain``), which computes the
   same squared distances bit for bit (explicit differences summed over the
   coordinates in order, no fused multiply-add).
@@ -22,6 +24,8 @@ kernel launches (plain integers); the plain versions never touch them.
 from __future__ import annotations
 
 import torch
+
+from massivedatans_tpu_torch.ops import _build
 
 _POS_BIG = 1e30
 MAX_NDIM = 8   # the kernels keep one point's coordinates in registers
@@ -61,54 +65,74 @@ def radius_from_sq_dists(d2, member_mask, inbag):
     return out
 
 
-def _check(cond, what):
-    if not cond:
-        raise ValueError(what)
-
-
-def _on_cuda(tensors) -> bool:
-    """True for CUDA inputs, False for CPU inputs; raises on anything else."""
-    devices = {t.device for t in tensors}
-    _check(len(devices) == 1, f"inputs on several devices: {sorted(map(str, devices))}")
-    (device,) = devices
+def _cuda_stream(first, *rest):
+    """None for CPU inputs. For CUDA inputs on the current device, the raw
+    handle of that device's current stream, which the launchers run on.
+    Raises on anything else. Messages are formed only on failure: this
+    runs every proposal round."""
+    device = first.device
+    for t in rest:
+        if t.device != device:
+            raise ValueError("inputs on several devices: "
+                             f"{sorted({str(u.device) for u in (first, *rest)})}")
     if device.type == "cpu":
-        return False
-    _check(device.type == "cuda", f"unsupported device {device}")
-    # the launchers run on the current device's stream
-    _check(device.index == torch.cuda.current_device(),
-           f"inputs on {device}, current device is cuda:{torch.cuda.current_device()}")
-    return True
+        return None
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    current = torch.cuda.current_device()
+    if device.index != current:
+        raise ValueError(f"inputs on {device}, current device is cuda:{current}")
+    # the handle without building a torch.cuda.Stream object
+    return torch._C._cuda_getCurrentRawStream(current)
 
 
-def _check_cuda_inputs(named):
+def _check_cuda_inputs(*named):
     for name, t, dtype in named:
-        _check(t.dtype == dtype, f"{name}: dtype {t.dtype}, kernel takes {dtype}")
-        _check(t.is_contiguous(), f"{name}: kernel takes a contiguous tensor")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: kernel takes a contiguous tensor")
+
+
+_workspaces = {}
+
+
+def _radius_workspace(device, stream: int):
+    """Two zeroed words per (device, stream) that the radius kernel merges
+    its blocks through and leaves zero again (``csrc/neighbors.cu``): the
+    one fill happens here, at the first call on that stream."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None:
+        ws = _workspaces[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return ws
 
 
 def count_within(members, member_mask, points, radius):
     """``int32[N]``: for each point, the valid members ``j`` with
-    ``|p - m_j|^2 < radius^2`` (strict), as ``count_within_pallas``."""
-    if not _on_cuda((members, member_mask, points, radius)):
+    ``|p - m_j|^2 < radius^2`` (strict), as ``count_within_pallas``. One
+    launch writes every count: the caller may pass any number of points
+    (``ns/region.sample_region`` passes both proposal halves at once)."""
+    stream = _cuda_stream(members, member_mask, points, radius)
+    if stream is None:
         return count_within_plain(members, member_mask, points, radius)
-    from massivedatans_tpu_torch.ops import _build
-
-    _check_cuda_inputs((("members", members, torch.float32),
-                        ("member_mask", member_mask, torch.bool),
-                        ("points", points, torch.float32),
-                        ("radius", radius, torch.float32)))
+    _check_cuda_inputs(("members", members, torch.float32),
+                       ("member_mask", member_mask, torch.bool),
+                       ("points", points, torch.float32),
+                       ("radius", radius, torch.float32))
     N, ndim = points.shape
     M = members.shape[0]
-    _check(members.shape == (M, ndim), f"members {tuple(members.shape)} vs points {tuple(points.shape)}")
-    _check(member_mask.shape == (M,), f"member_mask {tuple(member_mask.shape)}, want ({M},)")
-    _check(radius.numel() == 1, "radius must hold one value")
-    _check(1 <= ndim <= MAX_NDIM, f"ndim {ndim} outside [1, {MAX_NDIM}]")
-    lib = _build.load()
-    out = torch.zeros((N,), dtype=torch.int32, device=points.device)
-    rc = lib.mdt_count_within(
+    if not (members.shape == (M, ndim) and member_mask.shape == (M,)
+            and radius.numel() == 1 and 1 <= ndim <= MAX_NDIM):
+        raise ValueError(
+            f"count_within takes members [M, ndim], mask [M], points "
+            f"[N, ndim], one radius, 1 <= ndim <= {MAX_NDIM}; got "
+            f"{tuple(members.shape)}, {tuple(member_mask.shape)}, "
+            f"{tuple(points.shape)}, {radius.numel()} values")
+    out = torch.empty((N,), dtype=torch.int32, device=points.device)
+    rc = _build.load().mdt_count_within(
         points.data_ptr(), N, members.data_ptr(), member_mask.data_ptr(), M,
-        ndim, radius.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(points.device).cuda_stream,
+        ndim, radius.data_ptr(), out.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(f"count_within kernel launch failed: cudaError {rc}")
@@ -122,24 +146,25 @@ count_within.launches = 0
 def bootstrapped_sq_radius(w, member_mask, inbag):
     """Squared RadFriends radius from precomputed in-bag masks ``[nb, M]``
     (a 0-dim float32 tensor), as ``bootstrapped_sq_radius_pallas``."""
-    if not _on_cuda((w, member_mask, inbag)):
+    stream = _cuda_stream(w, member_mask, inbag)
+    if stream is None:
         return bootstrapped_sq_radius_plain(w, member_mask, inbag)
-    from massivedatans_tpu_torch.ops import _build
-
-    _check_cuda_inputs((("w", w, torch.float32),
-                        ("member_mask", member_mask, torch.bool),
-                        ("inbag", inbag, torch.bool)))
+    _check_cuda_inputs(("w", w, torch.float32),
+                       ("member_mask", member_mask, torch.bool),
+                       ("inbag", inbag, torch.bool))
     M, ndim = w.shape
     nb = inbag.shape[0]
-    _check(member_mask.shape == (M,), f"member_mask {tuple(member_mask.shape)}, want ({M},)")
-    _check(inbag.shape == (nb, M), f"inbag {tuple(inbag.shape)}, want ({nb}, {M})")
-    _check(1 <= ndim <= MAX_NDIM, f"ndim {ndim} outside [1, {MAX_NDIM}]")
-    _check(1 <= nb <= NB_MAX, f"nbootstraps {nb} outside [1, {NB_MAX}]")
-    lib = _build.load()
-    out = torch.zeros((), dtype=torch.float32, device=w.device)
-    rc = lib.mdt_bootstrap_radius(
+    if not (member_mask.shape == (M,) and inbag.shape == (nb, M)
+            and 1 <= ndim <= MAX_NDIM and 1 <= nb <= NB_MAX):
+        raise ValueError(
+            f"bootstrapped_sq_radius takes w [M, ndim], mask [M], inbag "
+            f"[nb, M], 1 <= ndim <= {MAX_NDIM}, 1 <= nb <= {NB_MAX}; got "
+            f"{tuple(w.shape)}, {tuple(member_mask.shape)}, "
+            f"{tuple(inbag.shape)}")
+    out = torch.empty((), dtype=torch.float32, device=w.device)
+    rc = _build.load().mdt_bootstrap_radius(
         w.data_ptr(), member_mask.data_ptr(), inbag.data_ptr(), M, ndim, nb,
-        out.data_ptr(), torch.cuda.current_stream(w.device).cuda_stream,
+        out.data_ptr(), _radius_workspace(w.device, stream).data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(

@@ -94,14 +94,16 @@ def test_musefit_unported_options_raise(tiny_cube, flags, item):
 def test_run_fit_in_fresh_process_imports_no_jax():
     code = (
         "import sys, numpy as np, torch\n"
-        "from massivedatans_tpu.config import RunConfig\n"
-        "from massivedatans_tpu.datagen.generators import gen_horns\n"
+        "from massivedatans_tpu_torch.config import RunConfig\n"
+        "from massivedatans_tpu_torch.datagen.generators import gen_horns\n"
         "from massivedatans_tpu_torch.cli import run_fit\n"
         "d = gen_horns(16)\n"
         "r = run_fit(d['x'], d['y'][:, :2], RunConfig(nlive_points=30, "
         "max_samples=60), 'cpu')\n"
         "assert np.isfinite(r.logZ).all(), r.logZ\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "pkg = sorted(m for m in sys.modules if m.split('.')[0] == 'massivedatans_tpu')\n"
+        "assert not pkg, pkg\n"
         "print('ok', r.niterations)\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")

@@ -18,6 +18,7 @@ from massivedatans_tpu.config import RunConfig
 from massivedatans_tpu.models.analytic import make_analytic_gaussian_problem
 from massivedatans_tpu.ns import engine as jax_engine
 from massivedatans_tpu.ns import shelves as jax_shelves
+from massivedatans_tpu_torch.config import RunConfig as PortRunConfig
 from massivedatans_tpu_torch.convert import problem_from_numpy, state_from_numpy
 from massivedatans_tpu_torch.ns import engine, shelves
 from massivedatans_tpu_torch.ns.integrator import compact_pile, fetch
@@ -169,6 +170,11 @@ def jax_setup():
     return centers, cfg, problem, state
 
 
+def _port(cfg):
+    """The port's RunConfig with the fields of a JAX package RunConfig."""
+    return PortRunConfig(**dataclasses.asdict(cfg))
+
+
 def _state_fields(st):
     fields = {k: np.asarray(v) for k, v in st._asdict().items()
               if k not in ("key", "shelves")}
@@ -190,7 +196,8 @@ def test_device_termination_matches_jax(jax_setup, mode):
     else:
         cfg = dataclasses.replace(cfg, max_samples=40)
     want = jax_engine.device_termination(st, cfg, 60)
-    got = engine.device_termination(state_from_numpy(_state_fields(st)), cfg, 60)
+    got = engine.device_termination(state_from_numpy(_state_fields(st)),
+                                    _port(cfg), 60)
     _same(got.running, want.running)
     _same(got.term_iter, want.term_iter)
     assert 0 < int(want.running.sum()) < 10 or mode == "max_samples"
@@ -242,7 +249,7 @@ def test_ns_iteration_deterministic_step_matches_jax(jax_setup, start_iter):
     tp = problem_from_numpy({k: np.asarray(v) for k, v in
                              problem.data.__dict__.items()}, "analytic_gaussian")
     (got, _, _), gdead = engine.ns_iteration(
-        tp, state_from_numpy(_state_fields(st)), cfg, member_capacity,
+        tp, state_from_numpy(_state_fields(st)), _port(cfg), member_capacity,
         torch.Generator().manual_seed(0))
     assert int(got.fill_rounds) == int(want.fill_rounds) == 0
     for name in ("live_idx", "live_L", "running", "term_iter", "iteration",
@@ -285,7 +292,7 @@ def test_compact_pile_keeps_referenced_points(jax_setup):
     tp = problem_from_numpy({k: np.asarray(v) for k, v in
                              jax_setup[2].data.__dict__.items()},
                             "analytic_gaussian")
-    cfg = dataclasses.replace(jax_setup[1], pile_capacity=2048)
+    cfg = dataclasses.replace(_port(jax_setup[1]), pile_capacity=2048)
     st = engine.init_state(tp, torch.Generator().manual_seed(2), cfg)
     # move the live points to scattered pile rows
     K, D = st.live_idx.shape

@@ -312,7 +312,7 @@ def test_run_musefit_unported_options_raise(tmp_path):
 def test_fit_muse_in_fresh_process_imports_no_jax():
     code = (
         "import sys, tempfile, numpy as np\n"
-        "from massivedatans_tpu.config import RunConfig\n"
+        "from massivedatans_tpu_torch.config import RunConfig\n"
         "from massivedatans_tpu_torch.muse import synth\n"
         "from massivedatans_tpu_torch.muse.pipeline import fit_muse, load_muse_cube\n"
         "d = tempfile.mkdtemp()\n"
@@ -324,6 +324,7 @@ def test_fit_muse_in_fresh_process_imports_no_jax():
         "RunConfig(nlive_points=30, max_samples=60), device='cpu')\n"
         "assert np.isfinite(res.logZ).all() and prob.ndim == 4, res.logZ\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert 'massivedatans_tpu' not in sys.modules, sorted(sys.modules)\n"
         "print('ok', res.niterations)\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")

@@ -136,81 +136,6 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [256, 1000, 1664, 8192, 16384])
-def test_count_within_kernel_matches_plain_on_card(M):
-    _need_card()
-    g = torch.Generator(device="cuda").manual_seed(M)
-    members = torch.randn((M, 3), generator=g, device="cuda")
-    mask = torch.arange(M, device="cuda") < (M - M // 7)
-    pts = 3.0 * (2.0 * torch.rand((256, 3), generator=g, device="cuda") - 1.0)
-    radius = torch.tensor(0.45, device="cuda")
-    before = neighbors.count_within.launches
-    got = neighbors.count_within(members, mask, pts, radius)
-    torch.cuda.synchronize()
-    assert neighbors.count_within.launches == before + 1
-    # same explicit-difference arithmetic without FMA: bitwise equal
-    assert torch.equal(got, neighbors.count_within_plain(members, mask, pts,
-                                                         radius))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("M", [256, 1000, 1664, 8192, 16384])
-def test_bootstrap_radius_kernel_matches_plain_on_card(M):
-    _need_card()
-    from massivedatans_tpu_torch.ns.region import bootstrap_inbag_rounds
-
-    g = torch.Generator(device="cuda").manual_seed(M)
-    w = torch.randn((M, 3), generator=g, device="cuda")
-    mask = torch.arange(M, device="cuda") < (M - M // 5)
-    inbag = bootstrap_inbag_rounds(mask, g, 10)
-    before = neighbors.bootstrapped_sq_radius.launches
-    got = neighbors.bootstrapped_sq_radius(w, mask, inbag)
-    torch.cuda.synchronize()
-    assert neighbors.bootstrapped_sq_radius.launches == before + 1
-    want = neighbors.bootstrapped_sq_radius_plain(w, mask, inbag)
-    assert float(got) > 0
-    assert torch.isclose(got, want, rtol=1e-5, atol=0.0), (got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("M", [1664, 16384])
-def test_count_within_kernel_matches_plain_on_card_ndim5(M):
-    """MUSE FULL's dimension (ZSOL has 4)."""
-    _need_card()
-    g = torch.Generator(device="cuda").manual_seed(M + 5)
-    members = torch.randn((M, 5), generator=g, device="cuda")
-    mask = torch.arange(M, device="cuda") < (M - M // 7)
-    pts = 3.0 * (2.0 * torch.rand((256, 5), generator=g, device="cuda") - 1.0)
-    radius = torch.tensor(0.9, device="cuda")
-    before = neighbors.count_within.launches
-    got = neighbors.count_within(members, mask, pts, radius)
-    torch.cuda.synchronize()
-    assert neighbors.count_within.launches == before + 1
-    want = neighbors.count_within_plain(members, mask, pts, radius)
-    assert int(want.sum()) > 0
-    assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("M", [1664, 16384])
-def test_bootstrap_radius_kernel_matches_plain_on_card_ndim5(M):
-    _need_card()
-    from massivedatans_tpu_torch.ns.region import bootstrap_inbag_rounds
-
-    g = torch.Generator(device="cuda").manual_seed(M + 5)
-    w = torch.randn((M, 5), generator=g, device="cuda")
-    mask = torch.arange(M, device="cuda") < (M - M // 5)
-    inbag = bootstrap_inbag_rounds(mask, g, 10)
-    before = neighbors.bootstrapped_sq_radius.launches
-    got = neighbors.bootstrapped_sq_radius(w, mask, inbag)
-    torch.cuda.synchronize()
-    assert neighbors.bootstrapped_sq_radius.launches == before + 1
-    want = neighbors.bootstrapped_sq_radius_plain(w, mask, inbag)
-    assert float(got) > 0
-    assert torch.isclose(got, want, rtol=1e-5, atol=0.0), (got, want)
-
-
-@pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take():
     _need_card()
     members = torch.rand((64, 9), device="cuda")  # ndim 9 > MAX_NDIM
@@ -221,3 +146,164 @@ def test_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         neighbors.bootstrapped_sq_radius(
             w, mask, torch.ones((33, 64), dtype=torch.bool, device="cuda"))
+
+
+def _sample_region_two_calls(reg, generator, nprop, norm):
+    """``sample_region`` as it was before the fused count: each half
+    counted on its own, from the plain count, in the same draw order."""
+    from massivedatans_tpu_torch.ns import region
+
+    def count(w_points):
+        if norm == "euclidean":
+            return neighbors.count_within_plain(reg.members_w, reg.member_mask,
+                                                w_points, reg.radius)
+        return region.count_within(reg, w_points, norm=norm)
+
+    ndim = reg.members_w.shape[1]
+    n_box = nprop // 2
+    n_ball = nprop - n_box
+    w_box = reg.lo + (reg.hi - reg.lo) * torch.rand((n_box, ndim),
+                                                    generator=generator)
+    ok_box = count(w_box) > 0
+    mem = region.uniform_choice(reg.member_mask, n_ball, generator)
+    w_ball = reg.members_w[mem] + region.ball_offsets(generator, n_ball, ndim,
+                                                      reg.radius, norm=norm)
+    nnear = count(w_ball)
+    coin = torch.rand((n_ball,), generator=generator)
+    ok_ball = coin * nnear.to(coin.dtype) < 1.0
+    w_all = torch.cat([w_box, w_ball], dim=0)
+    u = reg.metric.untransform(w_all)
+    in_cube = torch.all((u > 0.0) & (u < 1.0), dim=1)
+    return u, torch.cat([ok_box, ok_ball], dim=0) & in_cube
+
+
+@pytest.mark.parametrize("norm", ["euclidean", "chebyshev"])
+@pytest.mark.parametrize("ndim, nprop", [(3, 512), (5, 512), (2, 33)])
+def test_sample_region_fused_count_equals_two_calls(norm, ndim, nprop):
+    from massivedatans_tpu_torch.ns import region
+
+    rng = np.random.default_rng(ndim + nprop)
+    M = 300
+    members = torch.from_numpy(rng.uniform(0.2, 0.8, size=(M, ndim)).astype(np.float32))
+    mask = torch.from_numpy(np.arange(M) < 250)
+    reg = region.build_region(members, mask, torch.Generator().manual_seed(1),
+                              norm=norm)
+    got = region.sample_region(reg, torch.Generator().manual_seed(7), nprop,
+                               norm=norm)
+    want = _sample_region_two_calls(reg, torch.Generator().manual_seed(7),
+                                    nprop, norm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert 0 < int(got[1].sum()) < nprop
+
+
+def _card_count_case(seed, N, M, ndim):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    members = torch.randn((M, ndim), generator=g, device="cuda")
+    mask = torch.arange(M, device="cuda") < (M - M // 7)
+    pts = 3.0 * (2.0 * torch.rand((N, ndim), generator=g, device="cuda") - 1.0)
+    # wide enough in every ndim that points find members
+    radius = torch.tensor(0.2 + 0.25 * ndim, device="cuda")
+    return members, mask, pts, radius
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N, M, ndim",
+                         [(256, M, 3) for M in (256, 1000, 1664, 8192, 16384)]
+                         + [(256, M, 5) for M in (1664, 16384)]
+                         + [(512, M, 3) for M in (1, 63, 1000, 1664, 4100, 16384)]
+                         + [(512, 1664, d) for d in (1, 2, 4, 5, 6, 7, 8)]
+                         + [(512, 16384, 8)])
+def test_count_within_kernel_matches_plain_on_card(N, M, ndim):
+    """Bitwise (same explicit-difference arithmetic without FMA). N=512 is
+    the main path: both proposal halves of a round in one call; M=4100 and
+    16384 stream the members through two shared-memory buffers."""
+    _need_card()
+    members, mask, pts, radius = _card_count_case(M + ndim + N, N, M, ndim)
+    before = neighbors.count_within.launches
+    got = neighbors.count_within(members, mask, pts, radius)
+    torch.cuda.synchronize()
+    assert neighbors.count_within.launches == before + 1
+    want = neighbors.count_within_plain(members, mask, pts, radius)
+    assert torch.equal(got, want)
+    if M >= 1000:
+        assert int(want.sum()) > 0
+
+
+def _card_radius_case(seed, M, ndim, nb):
+    from massivedatans_tpu_torch.ns.region import bootstrap_inbag_rounds
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((M, ndim), generator=g, device="cuda")
+    mask = torch.arange(M, device="cuda") < max(1, M - M // 5)
+    return w, mask, bootstrap_inbag_rounds(mask, g, nb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M, ndim, nb",
+                         [(M, 3, nb) for M in (1, 63, 256, 1000, 1664, 8192, 16384)
+                          for nb in (1, 3, 10, 32)]
+                         + [(1664, d, nb) for d in (1, 2, 4, 5, 6, 7, 8)
+                            for nb in (3, 10)]
+                         + [(16384, 5, 10)])
+def test_bootstrap_radius_kernel_matches_plain_on_card(M, ndim, nb):
+    """Bitwise. nb 10 runs the templated instantiation, the others the
+    generic one; M 1 and 63 give column spans that do not fill a cluster."""
+    _need_card()
+    w, mask, inbag = _card_radius_case(M * 37 + nb + ndim, M, ndim, nb)
+    before = neighbors.bootstrapped_sq_radius.launches
+    got = neighbors.bootstrapped_sq_radius(w, mask, inbag)
+    torch.cuda.synchronize()
+    assert neighbors.bootstrapped_sq_radius.launches == before + 1
+    want = neighbors.bootstrapped_sq_radius_plain(w, mask, inbag)
+    assert got.shape == () and got.dtype == torch.float32
+    assert torch.equal(got, want), (float(got), float(want))
+    if M >= 256:
+        assert float(want) > 0
+    # twice in a row: the merge workspace came back to zero
+    assert torch.equal(neighbors.bootstrapped_sq_radius(w, mask, inbag), want)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_alone_without_a_fill():
+    """In the profiler, a call of either wrapper runs its own kernel and no
+    other device work: no zero-fill comes before it."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    members, mask, pts, radius = _card_count_case(1, 512, 1664, 3)
+    w, wmask, inbag = _card_radius_case(2, 1664, 3, 10)
+    neighbors.count_within(members, mask, pts, radius)
+    neighbors.bootstrapped_sq_radius(w, wmask, inbag)  # makes its workspace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            neighbors.count_within(members, mask, pts, radius)
+            neighbors.bootstrapped_sq_radius(w, wmask, inbag)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0}
+    # a trace may miss a launch, never invent one: exactly our two kernels
+    assert len(kernels) == 2, kernels
+    assert all("count_within" in k or "bootstrap_radius" in k for k in kernels), kernels
+
+
+@pytest.mark.cuda
+def test_one_count_launch_per_region_round_in_a_fit(monkeypatch):
+    _need_card()
+    from massivedatans_tpu_torch.cli import run_fit
+    from massivedatans_tpu_torch.config import RunConfig
+    from massivedatans_tpu_torch.datagen.generators import gen_horns
+    from massivedatans_tpu_torch.ns import region
+
+    rounds = []
+    sample = region.sample_region
+    monkeypatch.setattr(region, "sample_region",
+                        lambda *a, **k: rounds.append(1) or sample(*a, **k))
+    data = gen_horns(50)
+    neighbors.count_within.launches = 0
+    result = run_fit(data["x"], data["y"], RunConfig(nlive_points=100,
+                                                     max_samples=300), "cuda")
+    assert np.isfinite(result.logZ).all()
+    assert len(rounds) > 0
+    assert neighbors.count_within.launches == len(rounds)
