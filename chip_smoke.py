@@ -12,13 +12,22 @@ version on the card:
   behind ``python -m massivedatans_tpu_torch fit``) with the default
   ``RunConfig`` (nlive 400, tolerance 0.5, MLFRIENDS) over all 1000
   spectra;
+- strategies: the same 1000 horns spectra fitted again with the default
+  ``RunConfig`` but ``constrainer`` MULTIELLIPSOIDS, SLICE (``iterate``
+  directions) and GALILEAN. SLICE is capped at ``SLICE_MAX_SAMPLES``
+  iterations (2000): to tolerance it takes
+  about 9 min on the H100 (28.6 fill rounds per iteration, each a few ms
+  of host issue), and with 100 spectra no less, since the rounds per
+  iteration do not fall with fewer datasets
+  (``tools/torch_strategy_fits.py`` times both);
 - MUSE: the ``tools/muse_validate.py`` fixture (7 Z x 111 ages x 400 wl
   templates, a 10x10 model-family cube of nspec 3600, seed 11, flux
   0.1-1.0) built with the port's ``synth``, then ``fit_muse`` (the core of
   ``python -m massivedatans_tpu_torch musefit``) with the FULL model (ndim
   5), nlive 400, tolerance 0.5, capped at ``--muse-max-samples``
-  iterations (default 2500, which keeps the whole script near 5 min; 0
-  runs to tolerance).
+  iterations (default 2000, about 30 s on the H100, to make room for the
+  strategy fits: the 500 iterations after it take about 2 min; 0 runs to
+  tolerance).
 
 Phases, each of which raises on failure:
 
@@ -39,10 +48,22 @@ Phases, each of which raises on failure:
    proposal round), check the result's shapes, that logZ is finite, and
    that >= 95 of the first 100 datasets lie within 3 logZerr + 0.5 of the
    quadrature oracle ``quad_logZ.json``;
-5. reset the counters, run the MUSE fit, read the counters (as in 4),
+5. for each strategy, reset the counters, run its fit, read the counters
+   (neither region kernel may launch: these strategies build no
+   union-of-balls region), print one JSON line (wall, iterations, fill
+   rounds and rounds per iteration, evaluations, the host timing split),
+   and check that logZ is finite with logZerr > 0 and that at least the
+   share ``STRATEGY_BAR`` of the datasets held lie within 3 logZerr + 0.5
+   of ``quad_logZ.json`` (GALILEAN's bar rests on the JAX package's own
+   counts on these spectra, ROADMAP.md queue 3). The datasets held are the
+   first 100, but in the capped SLICE fit only those of them that stopped
+   at tolerance before the cap: a dataset still running at the cap has
+   the live points' remainder bracket in its logZerr, many nats wide. At
+   least ``SLICE_MIN_HELD`` must have stopped;
+6. reset the counters, run the MUSE fit, read the counters (as in 4),
    check the shapes, that logZ is finite with logZerr > 0, and the no-star
    identity on the empty spaxels: |median(logZ + yy/2)| <= 1;
-6. print one JSON line of kernel records, then the card's line, then the
+7. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
@@ -75,6 +96,15 @@ MUSE_FLUX = (0.1, 1.0)
 PROFILE_SAMPLES, PROFILE_SAMPLES_MUSE = 300, 2000  # the MUSE fit's costly
 # rounds come late: it reaches 2,000 iterations in about 30 s on the H100
 EMPTY_IDENTITY_BAR = 1.0  # |median(logZ + yy/2)| over empty spaxels
+# the ellipsoid and stateful strategies, and the least share of the
+# datasets held that must lie within the quadrature bar (GALILEAN: the JAX
+# package's own fits of these 1000 spectra put 76-89 of the first 100 there
+# over seeds 1-5, tools/jax_strategy_counts.py, so the bar is its least
+# count less 3; ROADMAP.md queue 3)
+STRATEGIES = ("MULTIELLIPSOIDS", "SLICE", "GALILEAN")
+STRATEGY_BAR = {"MULTIELLIPSOIDS": 0.95, "SLICE": 0.95, "GALILEAN": 0.73}
+SLICE_MAX_SAMPLES = 2000  # SLICE's depth cut
+SLICE_MIN_HELD = 40  # of the first 100, stopped at tolerance before the cap
 # NVIDIA H100 SXM data sheet, at its 700 W limit: fp32 outside the tensor
 # cores (neither kernel has work for them) and HBM3
 PEAK_FP32_OPS = 67e12
@@ -281,10 +311,14 @@ def main(argv=None):
                     help="also profile capped horns and MUSE fits "
                          f"({PROFILE_SAMPLES} and {PROFILE_SAMPLES_MUSE} "
                          "iterations) and write the kernel tables here")
-    ap.add_argument("--muse-max-samples", type=int, default=2500,
+    ap.add_argument("--muse-max-samples", type=int, default=2000,
                     help="iteration cap of the MUSE fit (0: run to "
                          "tolerance)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
+
+    def phase(title):
+        print(f"--- {title} (at {time.perf_counter() - t_start:.1f} s)")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -303,6 +337,7 @@ def main(argv=None):
     from massivedatans_tpu_torch.ops import _build, neighbors
 
     # --- phase 1: the card ---
+    phase("phase 1: the card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
@@ -313,6 +348,7 @@ def main(argv=None):
     assert torch.backends.cudnn.allow_tf32 is False
 
     # --- phase 2: build ---
+    phase("phase 2: build")
     build_s = _build_all(_build)
     print(f"build of both libraries, in parallel: {build_s:.2f} s "
           f"({os.path.relpath(_build.library_path(), ROOT)}, "
@@ -320,6 +356,7 @@ def main(argv=None):
     assert subsets._load_native() is not None  # native labels on the path
 
     # --- phase 3: kernels vs plain versions ---
+    phase("phase 3: kernels vs plain versions")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     timed = {"count_within": {}, "bootstrapped_sq_radius": {}}
     for ndim in (3, 5):  # horns, MUSE FULL
@@ -350,6 +387,7 @@ def main(argv=None):
         return counts
 
     # --- phase 4: the horns path ---
+    phase("phase 4: the horns path")
     cfg = RunConfig()
     data = gen_horns(1000)
     reset_counts()
@@ -383,7 +421,22 @@ def main(argv=None):
           f"max {dq.max():.3f})")
     assert within >= int(np.ceil(0.95 * nq)), (within, nq)
 
-    # --- phase 5: the MUSE path ---
+    # --- phase 5: the other strategies ---
+    phase("phase 5: the other strategies")
+    strategy_launches = {}
+    for name in STRATEGIES:
+        cap = SLICE_MAX_SAMPLES if name == "SLICE" else 0
+        reset_counts()
+        strategy_launches[name], within, held = strategy_fit(
+            run_fit, dataclasses.replace(cfg, constrainer=name,
+                                         max_samples=cap),
+            data, D, quad, neighbors, rounds)
+        assert held >= (SLICE_MIN_HELD if cap else nq), (name, held)
+        assert within >= np.ceil(STRATEGY_BAR[name] * held), (
+            name, within, held)
+
+    # --- phase 6: the MUSE path ---
+    phase("phase 6: the MUSE path")
     with tempfile.TemporaryDirectory() as tmp:
         reset_counts()
         muse_fit = muse_phase(args.muse_max_samples, tmp)
@@ -397,7 +450,8 @@ def main(argv=None):
             profile(lambda: muse_fit(PROFILE_SAMPLES_MUSE),
                     root + "_muse" + ext)
 
-    # --- phase 6: records ---
+    # --- phase 7: records ---
+    phase("phase 7: records")
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":
@@ -410,6 +464,8 @@ def main(argv=None):
         records.append(dict(
             name=name, route="cuda", source=src, replaces=replaces[name],
             launches=launches[name], launches_muse=muse_launches[name],
+            launches_strategies={k: v[name]
+                                 for k, v in strategy_launches.items()},
             region_rounds=launches["region_rounds"],
             region_rounds_muse=muse_launches["region_rounds"],
             max_abs_err=max(r["max_abs_err"] for r in recs.values()),
@@ -426,6 +482,56 @@ def main(argv=None):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, rounds,
+                 device=DEVICE):
+    """Fit the first ``ndata`` horns spectra with ``cfg.constrainer``,
+    print its record and check the path and the shapes: no region kernel
+    launched, finite evidences, logZerr > 0. Returns the launch counts, how
+    many of the datasets held lie within 3 logZerr + 0.5 of the quadrature
+    oracle ``quad``, and how many are held: the first 100, or where
+    ``cfg.max_samples`` caps the fit, those of them that stopped at
+    tolerance before the cap."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    result = run_fit(data["x"], data["y"][:, :ndata], cfg, device,
+                     noise_level=data["noise_level"])
+    sync()
+    wall = time.perf_counter() - t0
+    counts = dict(count_within=neighbors.count_within.launches,
+                  bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
+                  region_rounds=len(rounds))
+    nq = min(len(quad), ndata)
+    dq = np.abs(result.logZ[:nq] - quad[:nq])
+    held = np.ones(nq, bool)
+    if cfg.max_samples:
+        # iterations each dataset ran: the cap stops those still running
+        # one iteration past it
+        ran = result.mask[:result.niterations, :nq].sum(axis=0)
+        held = (ran <= cfg.max_samples) & ~result.stats["stalled_mask"][:nq]
+    within = int((dq < 3 * result.logZerr[:nq] + 0.5)[held].sum())
+    rec = dict(
+        fit=f"horns ndata={ndata} nlive={cfg.nlive_points} "
+            f"constrainer={cfg.constrainer} max_samples={cfg.max_samples} "
+            f"seed={cfg.seed}",
+        wall_s=wall, niter=result.niterations, ndraws=result.ndraws,
+        fill_rounds=result.stats["fill_rounds"],
+        rounds_per_iter=result.stats["fill_rounds"] / max(result.niterations, 1),
+        launches=counts, member_overflow=result.stats["member_overflow"],
+        stalled=result.stats["stalled"], timing=result.stats["timing"],
+        quad_within=within, quad_held=int(held.sum()), quad_n=nq,
+        median_dlogZ_held=float(np.median(dq[held])) if held.any() else None,
+        max_dlogZ_held=float(dq[held].max(initial=0.0)))
+    print(json.dumps(rec))
+    # the path claimed: no union-of-balls region, so neither kernel
+    assert counts == dict(count_within=0, bootstrapped_sq_radius=0,
+                          region_rounds=0), counts
+    assert result.logZ.shape == (ndata,) and np.isfinite(result.logZ).all()
+    assert (result.logZerr > 0).all()
+    assert result.u.shape == (result.niterations + cfg.nlive_points, ndata, 3)
+    return counts, within, int(held.sum())
 
 
 def muse_phase(max_samples, tmp):

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from massivedatans_tpu_torch.models.analytic import AnalyticGaussian
+from massivedatans_tpu_torch.models.analytic import AnalyticBimodal, AnalyticGaussian
 from massivedatans_tpu_torch.models.gaussline import GaussLine
 from massivedatans_tpu_torch.muse.likelihood import MuseProblem
 from massivedatans_tpu_torch.muse.model import model_data_from_numpy
@@ -27,7 +27,8 @@ def problem_from_numpy(arrays, kind: str, device="cpu"):
 
     ``kind="gaussline"``: ``x, y, ysq, noise_level`` (``GaussLineData``);
     ``kind="analytic_gaussian"``: ``centers, sigma``
-    (``AnalyticGaussianData``);
+    (``AnalyticGaussianData``); ``kind="analytic_bimodal"``: ``centers_a,
+    centers_b, sigma`` (``AnalyticBimodalData``);
     ``kind="muse"`` or ``"muse_zsol"``: the ``MuseModelData`` fields
     ``templates, ages, age_weight, model_wl, calzetti, data_wl, z_grid,
     norm_index, zlo, zhi`` and the ``MuseLikeData`` fields ``y_over_v,
@@ -45,6 +46,12 @@ def problem_from_numpy(arrays, kind: str, device="cpu"):
     if kind == "analytic_gaussian":
         return AnalyticGaussian(
             centers=_t(arrays["centers"], device, f32),
+            sigma=_t(arrays["sigma"], device, f32),
+        )
+    if kind == "analytic_bimodal":
+        return AnalyticBimodal(
+            centers_a=_t(arrays["centers_a"], device, f32),
+            centers_b=_t(arrays["centers_b"], device, f32),
             sigma=_t(arrays["sigma"], device, f32),
         )
     if kind in ("muse", "muse_zsol"):

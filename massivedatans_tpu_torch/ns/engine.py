@@ -5,9 +5,11 @@ Counterpart of ``massivedatans_tpu/ns/engine.py`` (reference
 
 - the point pile, live-point index matrix and shelves are fixed-shape
   tensors on the device inside one ``EngineState`` dataclass;
-- each fill round proposes a candidate batch from the region, scores it
-  against every dataset in one ``[B, nx] @ [nx, D]`` product, and scatters
-  all acceptances into all shelves at once;
+- each fill round proposes a candidate batch from the strategy's geometry
+  (a region, ellipsoids, or slice or walk chains), scores it against every
+  dataset in one ``[B, nx] @ [nx, D]`` product, scatters all acceptances
+  into all shelves at once, and feeds back to the strategy which
+  candidates beat a running dataset's threshold;
 - the streaming logZ/H update (``multi_nested_integrator.py:105-161``) runs
   on the device as part of each iteration, with a per-dataset volume ledger.
 
@@ -310,14 +312,17 @@ def _column_proposals(pile_u, live_idx, empty, generator, B: int,
 
 
 def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
-                  cfg: RunConfig, member_capacity: int, generator,
+                  sstate, cfg: RunConfig, member_capacity: int, generator,
                   budget_left: int | None = None, live_bot=None):
     """Propose/evaluate/scatter until every running dataset has a queued
     candidate (reference fill loop, multi_nested_sampler.py:365-489).
 
-    ``budget_left`` meters fill rounds across a chunk; the loop also exits
-    when it reaches zero, leaving some shelves empty (those datasets skip
-    this iteration). Returns ``(state, budget_left)``.
+    ``sstate`` is the strategy's state (``strategy.init_chains``); it is
+    carried through the rounds and fed back after each scoring (a refocus
+    rebuilds the geometry and keeps it). ``budget_left`` meters fill rounds
+    across a chunk; the loop also exits when it reaches zero, leaving some
+    shelves empty (those datasets skip this iteration). Returns
+    ``(state, budget_left)``.
     """
     S = cfg.shelf_capacity
     # nsuperset_draws counts single candidates (multi_nested_sampler.py:373);
@@ -374,8 +379,8 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
                 norm=strategy.norm, n_slots=cfg.column_slots)
             take = torch.argsort((~ok).to(torch.uint8), stable=True)[:cfg.eval_batch]
             cand_u, valid, src_col = u[take], ok[take], cols[take]
-        else:
-            cand_u, valid = strategy.propose(geom, generator)
+        else:  # column rounds leave sstate as it is
+            cand_u, valid, sstate = strategy.propose(geom, sstate, generator)
             src_col = None
         cand_x = problem.transform_batch(cand_u)
         L = problem.loglike(cand_x)                         # [B, D]
@@ -387,6 +392,12 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
         if src_col is not None:
             # column-round candidates only fill their source column
             acc = acc & (src_col[:, None] == cols_all)
+
+        # strategy feedback: e.g. slice chains advance when the candidate
+        # beats any running dataset's constraint (whitenedmcmc.py:305)
+        chain_accept = above.any(dim=1)
+        sstate = strategy.observe(sstate, cand_u, chain_accept)
+        sstate = strategy.refresh(geom, sstate, generator, chain_accept)
 
         # pile append for candidates accepted by any dataset
         newpt = torch.any(acc, dim=1)
@@ -463,9 +474,11 @@ def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
     if isinstance(geom, Region):  # force_shrink memory (MLFriends only)
         state = state.replace(prev_scale=geom.metric.scale,
                               prev_radius=geom.radius)
+    # fresh strategy state every iteration, as in the JAX package
+    sstate = strategy.init_chains(geom, generator)
 
     state, budget_left = _fill_shelves(
-        problem, state, strategy, geom, cfg, member_capacity,
+        problem, state, strategy, geom, sstate, cfg, member_capacity,
         generator, budget_left, live_bot=live_bot)
     # a drained budget means the fill was truncated, not that the contour is
     # unfillable: empty shelves then do not count toward stall termination

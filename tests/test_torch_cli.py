@@ -36,6 +36,23 @@ def test_gen_fit_check_roundtrip(tmp_path, monkeypatch, capsys):
     assert "logZ[0]" in text and "dataset 1:" in text
 
 
+def test_fit_with_slice_constrainer_writes_reference_schema(tmp_path,
+                                                            monkeypatch):
+    """CONSTRAINER picks the strategy, as for the JAX CLI, and names the
+    output file."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("CONSTRAINER", "SLICE")
+    cli.main(["gen", "horns", "32"])
+    cli.main(["fit", "data_widths_32.hdf5", "3", "--nlive", "40",
+              "--max-samples", "150", "--device", "cpu", "--quiet"])
+    out = "data_widths_32.hdf5_SLICE_nlive40_3.out8.hdf5"
+    with h5py.File(out) as f:
+        assert set(f.keys()) == SCHEMA
+        assert f["u"].shape[1:] == (3, 3) and f["logZ"].shape == (3,)
+        assert f["mask"].shape[0] == f["u"].shape[0]
+        assert (f["logZerr"][()] > 0).all()
+
+
 def test_default_cuda_device_without_card_exits(tmp_path, monkeypatch):
     """--device defaults to cuda; with no card the fit stops with a message
     instead of running on the CPU."""

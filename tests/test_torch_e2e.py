@@ -155,10 +155,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         multi_nested_integrator(problem, RunConfig(eval_batch_max=512),
                                 device="cpu")
-    from massivedatans_tpu_torch.ns.strategies import make_strategy
-
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_strategy(RunConfig(constrainer="SLICE"))
 
 
 def test_port_modules_import_no_jax_modules():
