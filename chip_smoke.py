@@ -27,7 +27,11 @@ version on the card:
   5), nlive 400, tolerance 0.5, capped at ``--muse-max-samples``
   iterations (default 2000, about 30 s on the H100, to make room for the
   strategy fits: the 500 iterations after it take about 2 min; 0 runs to
-  tolerance).
+  tolerance);
+- resume: the horns fit of phase 4 again, preempted (``max_chunks``) at
+  half its chunks with a checkpoint, then resumed from it;
+- escalation: the MUSE fit again at the same cap with ``eval_batch_max``
+  512 (``bench.py``'s value).
 
 Phases, each of which raises on failure:
 
@@ -37,12 +41,13 @@ Phases, each of which raises on failure:
    compiler) at the same time and print the build seconds;
 3. hold each kernel bitwise against its plain version at ndim 3 (horns)
    and 5 (MUSE FULL), at the member cap M=1664 and at M=16384, the radius
-   also at nb 3 and 32 (its generic instantiation); time each of those
-   eight cases (CUDA events and profiler device time, kernel and plain) and
-   print its bound (operations or bytes, from this run's inputs, against
-   the H100's published fp32 and memory rates); check in the profiler that
-   a call of either wrapper runs its kernel and nothing else (no
-   zero-fill);
+   also at nb 3 and 32 (its generic instantiation), the count also at
+   N=2048 and M=1664 (a round of an escalated chunk); time each of those
+   ten cases (CUDA events, and profiler device time where the profiler
+   records the device, kernel and plain) and print its bound (operations
+   or bytes, from this run's inputs, against the H100's published fp32 and
+   memory rates); check in a CUDA graph capture that a call of either
+   wrapper enqueues its kernel and nothing else (no zero-fill);
 4. reset the launch counters, run the horns fit, read the counters (each
    kernel must have launched, and ``count_within`` exactly once per region
    proposal round), check the result's shapes, that logZ is finite, and
@@ -63,7 +68,14 @@ Phases, each of which raises on failure:
 6. reset the counters, run the MUSE fit, read the counters (as in 4),
    check the shapes, that logZ is finite with logZerr > 0, and the no-star
    identity on the empty spaxels: |median(logZ + yy/2)| <= 1;
-7. print one JSON line of kernel records, then the card's line, then the
+7. reset the counters, preempt and resume the horns fit, read the
+   counters (as in 4), print both legs' walls and the checkpoint's bytes
+   on disk, and check that the resumed result is phase 4's bit for bit
+   (logZ, logZerr, L, u, x, w, mask, iterations, evaluations, fill
+   rounds); then reset the counters, run the escalated MUSE fit, read the
+   counters, check it as in 6 and that it ran escalated chunks, and print
+   its rounds, evaluations, wall and launches beside phase 6's;
+8. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
@@ -90,9 +102,12 @@ TIMING_LAUNCHES = 200
 TIMING_LAUNCHES_LARGE = 20   # M=16384: the plain radius is ~1 GB per round
 MAIN_M, LARGE_M = 1664, 16384  # member cap (2 x nlive 400 rounded up), large
 COUNT_N = 512     # proposal_batch: both halves of a round in one call
+ESCALATED_N = 2048  # the same at eval_batch_max 512 (proposal_batch x 4)
+MUSE_EVAL_BATCH_MAX = 512  # bench.py's escalation ceiling
 NBOOT = 10        # RunConfig.nbootstraps
 MUSE_SIDE, MUSE_NSPEC, MUSE_SEED = 10, 3600, 11  # tools/muse_validate.py
 MUSE_FLUX = (0.1, 1.0)
+MUSE_NLIVE = 400
 PROFILE_SAMPLES, PROFILE_SAMPLES_MUSE = 300, 2000  # the MUSE fit's costly
 # rounds come late: it reaches 2,000 iterations in about 30 s on the H100
 EMPTY_IDENTITY_BAR = 1.0  # |median(logZ + yy/2)| over empty spaxels
@@ -105,6 +120,13 @@ STRATEGIES = ("MULTIELLIPSOIDS", "SLICE", "GALILEAN")
 STRATEGY_BAR = {"MULTIELLIPSOIDS": 0.95, "SLICE": 0.95, "GALILEAN": 0.73}
 SLICE_MAX_SAMPLES = 2000  # SLICE's depth cut
 SLICE_MIN_HELD = 40  # of the first 100, stopped at tolerance before the cap
+# the escalated MUSE fit against phase 6's on the spaxels with a star that
+# ran escalated rounds and stopped at tolerance before the cap in both: the
+# share within 3 sqrt(errA^2 + errB^2) + 0.5 of each other, and the least
+# number held (7 of them on the H100: the others are done before the first
+# switch, or still running at the cap in one of the fits)
+MUSE_ESCALATED_BAR = 0.95
+MUSE_MIN_HELD = 5
 # NVIDIA H100 SXM data sheet, at its 700 W limit: fp32 outside the tensor
 # cores (neither kernel has work for them) and HBM3
 PEAK_FP32_OPS = 67e12
@@ -127,7 +149,9 @@ def _time_ms(fn, n=TIMING_LAUNCHES):
 
 def _device_ms(fn, n=TIMING_LAUNCHES):
     """Device time per call: the summed duration of the CUDA kernels that
-    ``n`` calls launch, from a profiler trace (host gaps excluded).
+    ``n`` calls launch, from a profiler trace (host gaps excluded); None
+    when no trace holds a device record (the profiler's device tracing is
+    unavailable), with a note: ``_time_ms`` still times the calls.
 
     The trace on the card now and then loses kernel records. Every call
     launches the same kernels, so a whole trace holds each kernel a
@@ -150,7 +174,9 @@ def _device_ms(fn, n=TIMING_LAUNCHES):
         if kernels and all(c % n == 0 for c, _ in kernels):
             return sum(us for _, us in kernels) / n / 1e3
     if not kernels:
-        raise RuntimeError("five profiler traces held no device kernels")
+        print("  note: five profiler traces held no device records; device "
+              "time not measured (CUDA-event times stand)")
+        return None
     print(f"  warning: 5 traces lost kernel records; device time from the "
           f"mean kernel durations of the last ({kernels})")
     return sum(us / c * max(1, round(c / n)) for c, us in kernels) / 1e3
@@ -170,7 +196,8 @@ def _timed(rec, kernel, plain, n):
     rec["plain_ms"] = _time_ms(plain, n)
     rec["device_ms"] = _device_ms(kernel, n)
     rec["plain_device_ms"] = _device_ms(plain, n)
-    rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    rec["bound_share"] = (None if rec["device_ms"] is None
+                          else rec["bound_ms"] / rec["device_ms"])
     print("  timing", json.dumps({k: rec[k] for k in (
         "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
         "bound_by", "bound_share")}))
@@ -241,32 +268,69 @@ def check_radius(neighbors, region, gen, M, ndim, nb, timed=False):
     return rec
 
 
-def check_launch_alone(neighbors, region, gen):
-    """A profiled call of either wrapper runs its own kernel and nothing
-    else on the device: no zero-fill launch before it."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
+def check_launch_alone(neighbors, region, gen, dump_dir):
+    """One call of either wrapper enqueues its own kernel and nothing else
+    on the device: no zero-fill launch before it, no copy. Each call is
+    captured in a CUDA graph, whose node list (written by
+    ``cudaGraphDebugDotPrint`` into ``dump_dir``) holds every piece of work
+    the call put on the stream; unlike a profiler trace it loses none."""
     members = torch.randn((MAIN_M, 3), generator=gen, device=DEVICE)
     mask = torch.ones(MAIN_M, dtype=torch.bool, device=DEVICE)
     points = torch.rand((COUNT_N, 3), generator=gen, device=DEVICE)
     radius = torch.tensor(0.3, device=DEVICE)
     inbag = region.bootstrap_inbag_rounds(mask, gen, NBOOT)
+    calls = {
+        "count_within": lambda: neighbors.count_within(
+            members, mask, points, radius),
+        "bootstrap_radius": lambda: neighbors.bootstrapped_sq_radius(
+            members, mask, inbag)}
+    stream = torch.cuda.Stream()
+    # a first call on the capture stream outside the capture: the radius
+    # wrapper zeroes its stream's merge workspace once, at its first call
+    with torch.cuda.stream(stream):
+        for call in calls.values():
+            call()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            neighbors.count_within(members, mask, points, radius)
-            neighbors.bootstrapped_sq_radius(members, mask, inbag)
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == cuda and e.self_device_time_total > 0}
-    print("device work of 10 calls of each wrapper:", json.dumps(kernels))
-    # the trace may miss a launch, never invent one: our two kernels, and
-    # no other device work (a fill, a copy)
-    assert len(kernels) == 2, kernels
-    assert all("count_within" in k or "bootstrap_radius" in k
-               for k in kernels), kernels
+    found = {}
+    for name, call in calls.items():
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # not instantiated
+        graph.enable_debug_mode()
+        with torch.cuda.graph(graph, stream=stream):
+            call()
+        path = os.path.join(dump_dir, f"{name}.dot")
+        graph.debug_dump(path)
+        with open(path) as fh:
+            found[name] = _graph_nodes(fh.read())
+        del graph
+    print("device work of one call of each wrapper (CUDA graph nodes):",
+          json.dumps(found))
+    for name, nodes in found.items():
+        assert len(nodes) == 1 and nodes[0][0] == "KERNEL" \
+            and name in nodes[0][1], (name, nodes)
+
+
+_NODE_TYPES = ("KERNEL", "MEMCPY", "MEMSET", "HOST", "EMPTY", "GRAPH",
+               "EVENT_RECORD", "WAIT_EVENT", "EXT_SEMAS_SIGNAL",
+               "EXT_SEMAS_WAIT", "MEM_ALLOC", "MEM_FREE", "BATCH_MEM_OP",
+               "CONDITIONAL")
+
+
+def _graph_nodes(dot):
+    """``[(type, name), ...]``, one per node of a graph that
+    ``cudaGraphDebugDotPrint`` wrote: the node's type and, for a kernel,
+    its mangled name (else the node's label)."""
+    import re
+
+    starts = [m.start() for m in re.finditer(
+        r'^\s*"?graph_\d+_node_\d+"?\s*\[', dot, re.M)]
+    nodes = []
+    for a, b in zip(starts, starts[1:] + [len(dot)]):
+        block = dot[a:b]
+        kind = re.search(r"\b(" + "|".join(_NODE_TYPES) + r")\b", block)
+        name = re.search(r"_Z\w+", block)
+        nodes.append((kind.group(1) if kind else "?",
+                      name.group(0) if name else " ".join(block.split())[:200]))
+    return nodes
 
 
 def _count_rounds(region):
@@ -358,16 +422,21 @@ def main(argv=None):
     # --- phase 3: kernels vs plain versions ---
     phase("phase 3: kernels vs plain versions")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    timed = {"count_within": {}, "bootstrapped_sq_radius": {}}
+    # the horns main-path shape of each kernel first
+    timed = {"count_within": [], "bootstrapped_sq_radius": []}
     for ndim in (3, 5):  # horns, MUSE FULL
         for M in (MAIN_M, LARGE_M):
-            timed["count_within"][(M, ndim)] = check_count_within(
-                neighbors, gen, COUNT_N, M, ndim, timed=True)
-            timed["bootstrapped_sq_radius"][(M, ndim)] = check_radius(
-                neighbors, region, gen, M, ndim, NBOOT, timed=True)
+            timed["count_within"].append(check_count_within(
+                neighbors, gen, COUNT_N, M, ndim, timed=True))
+            timed["bootstrapped_sq_radius"].append(check_radius(
+                neighbors, region, gen, M, ndim, NBOOT, timed=True))
+    for ndim in (3, 5):  # a round of an escalated chunk
+        timed["count_within"].append(check_count_within(
+            neighbors, gen, ESCALATED_N, MAIN_M, ndim, timed=True))
     for nb in (3, 32):  # the generic instantiation
         check_radius(neighbors, region, gen, MAIN_M, 3, nb)
-    check_launch_alone(neighbors, region, gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        check_launch_alone(neighbors, region, gen, tmp)
 
     rounds = _count_rounds(region)
 
@@ -438,8 +507,9 @@ def main(argv=None):
     # --- phase 6: the MUSE path ---
     phase("phase 6: the MUSE path")
     with tempfile.TemporaryDirectory() as tmp:
+        fixture = muse_fixture(tmp)
         reset_counts()
-        muse_fit = muse_phase(args.muse_max_samples, tmp)
+        muse_rec, muse_res = muse_check(fixture, args.muse_max_samples)
         muse_launches = read_counts()
         print("MUSE launches:", json.dumps(muse_launches))
         if args.profile_out:
@@ -447,11 +517,48 @@ def main(argv=None):
                 cfg, max_samples=PROFILE_SAMPLES), DEVICE,
                 noise_level=data["noise_level"]), args.profile_out)
             root, ext = os.path.splitext(args.profile_out)
-            profile(lambda: muse_fit(PROFILE_SAMPLES_MUSE),
+            profile(lambda: muse_fit(fixture, PROFILE_SAMPLES_MUSE),
                     root + "_muse" + ext)
 
-    # --- phase 7: records ---
-    phase("phase 7: records")
+        # --- phase 7: resume and escalation ---
+        phase("phase 7: resume and escalation")
+        reset_counts()
+        resume_phase(run_fit, cfg, data, result, os.path.join(tmp, "ckpt"))
+        resume_launches = read_counts()
+        print("resume launches:", json.dumps(resume_launches))
+        reset_counts()
+        esc_rec, esc_res = muse_check(fixture, args.muse_max_samples,
+                                      eval_batch_max=MUSE_EVAL_BATCH_MAX)
+        escalated_launches = read_counts()
+        assert esc_rec["big_batch_chunks"] > 0, esc_rec
+        # the escalated rounds, held on the spaxels with a star that ran
+        # them (the two fits are bitwise alike until the first switch, so
+        # a spaxel done before it has phase 6's logZ to the bit) and that
+        # stopped at tolerance before the cap in both fits
+        n = MUSE_SIDE * MUSE_SIDE
+        held = (stopped_before_cap(muse_res, args.muse_max_samples, n)
+                & stopped_before_cap(esc_res, args.muse_max_samples, n)
+                & ~np.asarray(fixture[2]["empty"], bool)[:n]
+                & (esc_res.logZ != muse_res.logZ))
+        dz = np.abs(esc_res.logZ - muse_res.logZ)[held]
+        bar = (3 * np.hypot(esc_res.logZerr, muse_res.logZerr) + 0.5)[held]
+        within = int((dz < bar).sum())
+        print(f"MUSE escalated vs phase 6: {within}/{int(held.sum())} spaxels "
+              "(with a star, escalated, stopped at tolerance before the cap "
+              "in both) within 3 sqrt(errA^2 + errB^2) + 0.5 (median "
+              f"|dlogZ| {float(np.median(dz)) if held.any() else 0.0:.3f}, "
+              f"max {float(dz.max(initial=0.0)):.3f})")
+        assert held.sum() >= MUSE_MIN_HELD, int(held.sum())
+        assert within >= np.ceil(MUSE_ESCALATED_BAR * held.sum()), (
+            within, int(held.sum()))
+        print("MUSE escalated vs phase 6:", json.dumps({
+            k: [esc_rec[k], muse_rec[k]] for k in (
+                "wall_s", "niter", "fill_rounds", "ndraws",
+                "big_batch_chunks", "median_logZ_plus_half_yy")}
+            | {"launches": [escalated_launches, muse_launches]}))
+
+    # --- phase 8: records ---
+    phase("phase 8: records")
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":
@@ -460,22 +567,23 @@ def main(argv=None):
             "bound_by", "bound_share", "max_abs_err")
     records = []
     for name, recs in timed.items():
-        main_rec = recs[(MAIN_M, 3)]  # the horns main-path shape
+        main_rec = recs[0]  # the horns main-path shape
         records.append(dict(
             name=name, route="cuda", source=src, replaces=replaces[name],
             launches=launches[name], launches_muse=muse_launches[name],
             launches_strategies={k: v[name]
                                  for k, v in strategy_launches.items()},
+            launches_resume=resume_launches[name],
+            launches_muse_escalated=escalated_launches[name],
             region_rounds=launches["region_rounds"],
             region_rounds_muse=muse_launches["region_rounds"],
-            max_abs_err=max(r["max_abs_err"] for r in recs.values()),
+            max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             device_ms=main_rec["device_ms"], bound_ms=main_rec["bound_ms"],
             bound_by=main_rec["bound_by"],
             # no single PyTorch call computes either function
             library_ms=None,
-            shapes={r["shape"]: {k: r[k] for k in keys}
-                    for r in recs.values()}))
+            shapes={r["shape"]: {k: r[k] for k in keys} for r in recs}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -505,12 +613,7 @@ def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, rounds,
                   region_rounds=len(rounds))
     nq = min(len(quad), ndata)
     dq = np.abs(result.logZ[:nq] - quad[:nq])
-    held = np.ones(nq, bool)
-    if cfg.max_samples:
-        # iterations each dataset ran: the cap stops those still running
-        # one iteration past it
-        ran = result.mask[:result.niterations, :nq].sum(axis=0)
-        held = (ran <= cfg.max_samples) & ~result.stats["stalled_mask"][:nq]
+    held = stopped_before_cap(result, cfg.max_samples, nq)
     within = int((dq < 3 * result.logZerr[:nq] + 0.5)[held].sum())
     rec = dict(
         fit=f"horns ndata={ndata} nlive={cfg.nlive_points} "
@@ -534,12 +637,60 @@ def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, rounds,
     return counts, within, int(held.sum())
 
 
-def muse_phase(max_samples, tmp):
-    """Build the MUSE fixture in ``tmp``, fit it, check the result; returns
-    a ``fit(max_samples)`` callable for the profiler."""
-    from massivedatans_tpu_torch.config import RunConfig
+def stopped_before_cap(result, cap, n):
+    """Which of the first ``n`` datasets count as stopped at tolerance:
+    all of them in an uncapped fit; where ``cap`` iterations cap it, those
+    not stalled that stopped before the cap (it stops those still running
+    one iteration past it)."""
+    if not cap:
+        return np.ones(n, bool)
+    ran = result.mask[:result.niterations, :n].sum(axis=0)
+    return (ran <= cap) & ~result.stats["stalled_mask"][:n]
+
+
+def resume_phase(run_fit, cfg, data, full, ckpt_dir):
+    """Preempt the horns fit of phase 4 halfway through its chunks, resume
+    it from the checkpoint with a fresh generator seeded alike, and check
+    that the two legs give phase 4's result bit for bit."""
+    max_chunks = full.stats["chunks"] // 2
+    legs = []
+    for leg in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = run_fit(data["x"], data["y"], cfg, DEVICE,
+                    noise_level=data["noise_level"], checkpoint_dir=ckpt_dir,
+                    checkpoint_every=10,
+                    max_chunks=max_chunks if leg == 0 else None)
+        torch.cuda.synchronize()
+        legs.append((r, time.perf_counter() - t0))
+    (part, wall0), (resumed, wall1) = legs
+    nbytes = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                 for f in os.listdir(ckpt_dir))
+    same = {k: bool(np.array_equal(getattr(resumed, k), getattr(full, k)))
+            for k in ("logZ", "logZerr", "L", "u", "x", "w", "mask")}
+    print(json.dumps(dict(
+        fit=f"horns ndata={data['y'].shape[1]} nlive={cfg.nlive_points} "
+            f"preempted at chunk {max_chunks} of {full.stats['chunks']}, "
+            "then resumed",
+        wall_s=[wall0, wall1], niter=[part.niterations, resumed.niterations],
+        checkpoint_bytes=nbytes, checkpoint_files=len(os.listdir(ckpt_dir)),
+        checkpoint_s=[part.stats["timing"]["checkpoint_s"],
+                      resumed.stats["timing"]["checkpoint_s"]],
+        init_s=[part.stats["timing"]["init_s"],
+                resumed.stats["timing"]["init_s"]],
+        bitwise=same)))
+    assert part.stats["interrupted"] and not resumed.stats["interrupted"]
+    assert part.stats["chunks"] == max_chunks > 0
+    assert all(same.values()), same
+    assert (resumed.niterations, resumed.ndraws, resumed.stats["fill_rounds"]) \
+        == (full.niterations, full.ndraws, full.stats["fill_rounds"])
+
+
+def muse_fixture(tmp):
+    """Build the MUSE fixture in ``tmp``; returns ``(cube, templates,
+    truths)``."""
     from massivedatans_tpu_torch.muse import synth
-    from massivedatans_tpu_torch.muse.pipeline import fit_muse, load_muse_cube
+    from massivedatans_tpu_torch.muse.pipeline import load_muse_cube
 
     t0 = time.perf_counter()
     tpl = synth.make_template_files(os.path.join(tmp, "templates"))
@@ -554,42 +705,61 @@ def muse_phase(max_samples, tmp):
     cube = load_muse_cube(cube_path, reg, maxdata=n, bad_windows=[])
     with open(truths_path) as fh:
         truths = json.load(fh)
-    fixture_s = time.perf_counter() - t0
-    cfg = RunConfig(nlive_points=400, tolerance=0.5, max_samples=max_samples)
+    print(f"MUSE fixture built in {time.perf_counter() - t0:.2f} s")
+    return cube, tpl, truths
 
-    def fit(cap):
-        # progress lines (iteration, draws, it/s) go to stderr
-        return fit_muse(cube, tpl, 0.0, 0.5, "FULL",
-                        dataclasses.replace(cfg, max_samples=cap),
-                        device=DEVICE, progress=cap == max_samples)
 
+def muse_fit(fixture, cap, progress=False, run_opts=None, **cfg_changes):
+    """Fit the MUSE fixture (FULL, nlive 400, tolerance 0.5) capped at
+    ``cap`` iterations (0: none); ``run_opts`` go to the integrator
+    (checkpoint_dir, max_chunks). Returns ``(result, problem)``."""
+    from massivedatans_tpu_torch.config import RunConfig
+    from massivedatans_tpu_torch.muse.pipeline import fit_muse
+
+    cube, tpl, _ = fixture
+    cfg = RunConfig(nlive_points=MUSE_NLIVE, tolerance=0.5, max_samples=cap,
+                    **cfg_changes)
+    # progress lines (iteration, draws, it/s) go to stderr
+    return fit_muse(cube, tpl, 0.0, 0.5, "FULL", cfg, device=DEVICE,
+                    progress=progress, **(run_opts or {}))
+
+
+def muse_check(fixture, cap, **cfg_changes):
+    """Fit the MUSE fixture, print its record, check the shapes and the
+    no-star identity on the empty spaxels; returns the record and the
+    result."""
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result, problem = fit(max_samples)
+    result, problem = muse_fit(fixture, cap, progress=True, **cfg_changes)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    n = MUSE_SIDE * MUSE_SIDE
+    truths = fixture[2]
     empty = np.asarray(truths["empty"], bool)[:n]
     yy = np.asarray(truths["yy"], np.float64)[:n]
     identity = result.logZ[empty] + yy[empty] / 2
     med = float(np.median(identity)) if empty.any() else float("nan")
-    print(json.dumps(dict(
-        fit=f"MUSE FULL spaxels={problem.ndata} nspec={cube.y.shape[0]} "
-            f"nlive={cfg.nlive_points} max_samples={max_samples}",
-        fixture_s=fixture_s, wall_s=wall, niter=result.niterations,
+    rec = dict(
+        fit=f"MUSE FULL spaxels={problem.ndata} nspec={fixture[0].y.shape[0]} "
+            f"nlive={MUSE_NLIVE} max_samples={cap} {cfg_changes or ''}".strip(),
+        wall_s=wall, niter=result.niterations,
         ndraws=result.ndraws, fill_rounds=result.stats["fill_rounds"],
+        big_batch_chunks=result.stats["big_batch_chunks"],
+        chunks=result.stats["chunks"],
         member_overflow=result.stats["member_overflow"],
         stalled=result.stats["stalled"], timing=result.stats["timing"],
         peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9,
         n_empty=int(empty.sum()), median_logZ_plus_half_yy=med,
-        max_abs_logZ_plus_half_yy=float(np.abs(identity).max(initial=0.0)))))
-    rows = result.niterations + cfg.nlive_points
+        max_abs_logZ_plus_half_yy=float(np.abs(identity).max(initial=0.0)))
+    print(json.dumps(rec))
+    rows = result.niterations + MUSE_NLIVE
     assert result.u.shape == (rows, n, 5), result.u.shape
     assert result.x.shape == (rows, n, 5) and result.L.shape == (rows, n)
     assert result.logZ.shape == (n,) and np.isfinite(result.logZ).all()
     assert (result.logZerr > 0).all()
     assert empty.any() and abs(med) <= EMPTY_IDENTITY_BAR, med
-    return fit
+    return rec, result
 
 
 def profile(fit, path):

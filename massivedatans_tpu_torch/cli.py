@@ -26,9 +26,11 @@ from massivedatans_tpu_torch.config import RunConfig
 
 
 def run_fit(x, y, cfg: RunConfig, device, noise_level: float = 0.01,
-            progress: bool = False, generator=None):
+            progress: bool = False, generator=None, **run_opts):
     """Fit the Gaussian-line model to the spectra ``y[nx, D]`` on
-    ``device`` and return the ``NSResult``."""
+    ``device`` and return the ``NSResult``. ``run_opts`` go to
+    ``multi_nested_integrator`` (``checkpoint_dir``, ``checkpoint_every``,
+    ``max_chunks``, ``dispatch_target_s``, ``mesh``)."""
     from massivedatans_tpu_torch.config import set_fp32_precision
     from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
     from massivedatans_tpu_torch.ns.integrator import multi_nested_integrator
@@ -37,7 +39,8 @@ def run_fit(x, y, cfg: RunConfig, device, noise_level: float = 0.01,
     problem = make_gaussline_problem(x, y, noise_level=noise_level,
                                      device=device)
     return multi_nested_integrator(problem, cfg, device=device,
-                                   generator=generator, progress=progress)
+                                   generator=generator, progress=progress,
+                                   **run_opts)
 
 
 def _resolve_device(name: str) -> torch.device:
@@ -85,8 +88,6 @@ def cmd_fit(args):
 
     if args.devices > 1:
         _not_ported_cmd("fit --devices > 1", "15")(args)
-    if args.checkpoint_dir is not None:
-        _not_ported_cmd("fit --checkpoint-dir", "12")(args)
     device = _resolve_device(args.device)
     cfg = RunConfig.from_env(**{k: v for k, v in dict(
         nlive_points=args.nlive,
@@ -99,7 +100,9 @@ def cmd_fit(args):
           f"nlive={cfg.nlive_points}, constrainer={cfg.constrainer}",
           file=sys.stderr)
     result = run_fit(x, y, cfg, device, noise_level=args.noise_level,
-                     progress=not args.quiet)
+                     progress=not args.quiet,
+                     checkpoint_dir=args.checkpoint_dir,
+                     checkpoint_every=args.checkpoint_every)
     prefix = output_prefix(args.data, cfg.constrainer, cfg.nlive_points,
                            y.shape[1])
     write_results(prefix, result)
@@ -115,8 +118,6 @@ def cmd_musefit(args):
 
     if args.devices > 1 or args.model_parallel > 1:
         _not_ported_cmd("musefit --devices/--model-parallel > 1", "15")(args)
-    if args.checkpoint_dir is not None:
-        _not_ported_cmd("musefit --checkpoint-dir", "12")(args)
     device = _resolve_device(args.device)
     model = args.model or os.environ.get("MODEL", "FULL")
     maxdata = args.maxdata
@@ -127,7 +128,8 @@ def cmd_musefit(args):
         model=model, maxdata=maxdata,
         nlive=args.nlive or int(os.environ.get("NLIVE_POINTS", 400)),
         max_samples=args.max_samples, out_prefix=args.out,
-        ages_file=args.ages_file, device=device,
+        checkpoint_dir=args.checkpoint_dir, ages_file=args.ages_file,
+        device=device,
     )
     print("logZ = %.1f +- %.1f" % (result.logZ[0], result.logZerr[0]))
     print("ndraws:", result.ndraws)
@@ -185,7 +187,9 @@ def main(argv=None):
     f.add_argument("--devices", type=int, default=1,
                    help="datasets sharded over several devices: not ported")
     f.add_argument("--checkpoint-dir", default=None,
-                   help="checkpoint/resume: not ported")
+                   help="persist sampler state here and resume from it")
+    f.add_argument("--checkpoint-every", type=int, default=10,
+                   help="chunks between state checkpoints")
     f.set_defaults(fn=cmd_fit)
 
     c = sub.add_parser("check", help="summarize output files (checkoutput.py)")
@@ -212,7 +216,7 @@ def main(argv=None):
     m.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     m.add_argument("--checkpoint-dir", default=None,
-                   help="checkpoint/resume: not ported")
+                   help="persist sampler state here and resume from it")
     m.add_argument("--devices", type=int, default=1,
                    help="spaxels sharded over several devices: not ported")
     m.add_argument("--model-parallel", type=int, default=1,

@@ -118,10 +118,13 @@ def load_muse_cube(cube_path: str, region_path: str | None = None,
 
 def fit_muse(cube: MuseCube, template_files, zlo: float, zhi: float,
              model: str = "FULL", cfg: RunConfig | None = None, *, device,
-             ages=None, generator=None, progress: bool = False):
+             ages=None, generator=None, progress: bool = False,
+             **run_opts):
     """Fit every spaxel of ``cube`` jointly on ``device``; returns
     ``(result, problem)``. ``ages`` is the template age grid (years), by
-    default the reference BC03 grid."""
+    default the reference BC03 grid. ``run_opts`` go to
+    ``multi_nested_integrator`` (``checkpoint_dir``, ``checkpoint_every``,
+    ``max_chunks``, ``dispatch_target_s``, ``mesh``)."""
     if model not in MODELS:
         raise ValueError(f"model {model!r}: choose one of {MODELS}")
     set_fp32_precision()
@@ -131,7 +134,7 @@ def fit_muse(cube: MuseCube, template_files, zlo: float, zhi: float,
     problem = make_muse_problem(md, cube.y, cube.var, zsol=model == "ZSOL")
     result = multi_nested_integrator(problem, cfg or RunConfig(),
                                      device=device, generator=generator,
-                                     progress=progress)
+                                     progress=progress, **run_opts)
     return result, problem
 
 
@@ -150,10 +153,11 @@ def run_musefit(cube_path: str, region_path: str, zlo: float, zhi: float,
 
     ``bad_windows``: wavelength windows whose noise is inflated (None = the
     real-MUSE defaults; synthetic cubes pass ``[]``). ``checkpoint_dir``,
-    ``max_chunks``, ``dispatch_target_s`` and ``mesh`` are not ported yet
-    and raise; ``checkpoint_every`` only applies with a checkpoint."""
-    reject_unported(mesh=mesh, checkpoint_dir=checkpoint_dir,
-                    max_chunks=max_chunks, dispatch_target_s=dispatch_target_s)
+    ``checkpoint_every``, ``max_chunks`` and ``dispatch_target_s`` are the
+    integrator's (``multi_nested_integrator``); an interrupted fit writes
+    its partial result, as the JAX package does. ``mesh`` is not ported
+    yet and raises."""
+    reject_unported(mesh)
     cube = load_muse_cube(cube_path, region_path, maxdata=maxdata,
                           bad_windows=bad_windows)
     cfg = RunConfig.from_env(
@@ -162,7 +166,9 @@ def run_musefit(cube_path: str, region_path: str, zlo: float, zhi: float,
     )
     result, problem = fit_muse(
         cube, template_files, zlo, zhi, model=model, cfg=cfg, device=device,
-        ages=np.loadtxt(ages_file) if ages_file else None, progress=progress)
+        ages=np.loadtxt(ages_file) if ages_file else None, progress=progress,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        max_chunks=max_chunks, dispatch_target_s=dispatch_target_s)
 
     if out_prefix is None:
         suffix = "_zsol_" if model == "ZSOL" else "_full_"

@@ -69,9 +69,8 @@ def test_default_cuda_device_without_card_exits(tmp_path, monkeypatch):
 def test_unported_subcommands_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 13"):
         cli.main(["refine", "data.hdf5", "out.hdf5"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cli.main(["fit", "d.hdf5", "2", "--device", "cpu",
-                  "--checkpoint-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="item 15"):
+        cli.main(["fit", "d.hdf5", "2", "--device", "cpu", "--devices", "2"])
 
 
 @pytest.fixture
@@ -97,7 +96,6 @@ def test_musefit_roundtrip(tiny_cube, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--checkpoint-dir", "ckpt"], "12"),
     (["--devices", "2"], "15"),
     (["--model-parallel", "2"], "15"),
 ])

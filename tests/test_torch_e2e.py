@@ -146,15 +146,20 @@ def test_decoupled_datasets_with_column_rounds(monkeypatch, constrainer):
     assert result.stats["stalled"] == 0
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """Only the multi-device mesh is left unported; checkpointing,
+    eval-batch escalation and the adaptive fill budget run."""
     problem = make_analytic_gaussian_problem(np.full((2, 2), 0.5))
-    for kw, item in ((dict(mesh=object()), "15"),
-                     (dict(checkpoint_dir="ckpt"), "12")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            multi_nested_integrator(problem, SMALL, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        multi_nested_integrator(problem, RunConfig(eval_batch_max=512),
-                                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        multi_nested_integrator(problem, SMALL, device="cpu", mesh=object())
+    cfg = dataclasses.replace(SMALL, max_samples=60,
+                              eval_batch_max=4 * SMALL.eval_batch)
+    result = multi_nested_integrator(
+        problem, cfg, device="cpu", progress=False, dispatch_target_s=1.0,
+        checkpoint_dir=str(tmp_path / "ckpt"), checkpoint_every=1)
+    assert np.isfinite(result.logZ).all()
+    assert os.path.exists(tmp_path / "ckpt" / "state.npz")
+    assert result.stats["fill_budget_last"] is not None
 
 
 def test_port_modules_import_no_jax_modules():

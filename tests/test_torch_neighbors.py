@@ -212,11 +212,13 @@ def _card_count_case(seed, N, M, ndim):
                          + [(256, M, 5) for M in (1664, 16384)]
                          + [(512, M, 3) for M in (1, 63, 1000, 1664, 4100, 16384)]
                          + [(512, 1664, d) for d in (1, 2, 4, 5, 6, 7, 8)]
-                         + [(512, 16384, 8)])
+                         + [(512, 16384, 8)]
+                         + [(2048, 1664, d) for d in (3, 5)])
 def test_count_within_kernel_matches_plain_on_card(N, M, ndim):
     """Bitwise (same explicit-difference arithmetic without FMA). N=512 is
-    the main path: both proposal halves of a round in one call; M=4100 and
-    16384 stream the members through two shared-memory buffers."""
+    the main path: both proposal halves of a round in one call; N=2048 a
+    round of an escalated chunk (eval_batch_max 512); M=4100 and 16384
+    stream the members through two shared-memory buffers."""
     _need_card()
     members, mask, pts, radius = _card_count_case(M + ndim + N, N, M, ndim)
     before = neighbors.count_within.launches
@@ -307,3 +309,32 @@ def test_one_count_launch_per_region_round_in_a_fit(monkeypatch):
     assert np.isfinite(result.logZ).all()
     assert len(rounds) > 0
     assert neighbors.count_within.launches == len(rounds)
+
+
+@pytest.mark.cuda
+def test_one_count_launch_per_region_round_when_escalated(monkeypatch):
+    """Escalated chunks (eval_batch_max = 4 x eval_batch) propose 2048
+    points per region round, still counted in one launch."""
+    _need_card()
+    from massivedatans_tpu_torch.config import RunConfig
+    from massivedatans_tpu_torch.models.analytic import make_analytic_gaussian_problem
+    from massivedatans_tpu_torch.ns import region
+    from massivedatans_tpu_torch.ns.integrator import multi_nested_integrator
+
+    sizes = []
+    sample = region.sample_region
+    monkeypatch.setattr(region, "sample_region",
+                        lambda reg, g, n, **k: sizes.append(n) or sample(reg, g, n, **k))
+    # tight 5-D modes: late fills need several rounds per iteration
+    centers = np.random.default_rng(5).uniform(0.2, 0.8, size=(8, 5))
+    cfg = RunConfig(nlive_points=100, eval_batch=32, eval_batch_max=128,
+                    proposal_batch=512, shelf_capacity=4, chunk_iters=25,
+                    max_fill_rounds=512, max_samples=1000)
+    neighbors.count_within.launches = 0
+    result = multi_nested_integrator(
+        make_analytic_gaussian_problem(centers, sigma=0.02), cfg,
+        device="cuda", progress=False)
+    assert np.isfinite(result.logZ).all()
+    assert result.stats["big_batch_chunks"] > 0
+    assert set(sizes) == {512, 2048}
+    assert neighbors.count_within.launches == len(sizes)
