@@ -4,13 +4,19 @@
     python -m massivedatans_tpu_torch fit data_widths_1000.hdf5 100
     python -m massivedatans_tpu_torch check <output.out8.hdf5>
     python -m massivedatans_tpu_torch musefit CUBE REGION ZLO ZHI TEMPLATES...
+    python -m massivedatans_tpu_torch refine <data.hdf5> <output.out8.hdf5>
+    python -m massivedatans_tpu_torch plot-evidences|plot-scaling|plot-posterior|
+                                      plot-bestfit|plot-muse-posterior ...
 
 Same arguments, environment knobs and output files as
 ``python -m massivedatans_tpu`` (reference ``sample.py``), plus
-``--device`` (default ``cuda``). The data generators and the HDF5 schema
-are this package's copies of the JAX package's (``datagen/generators.py``,
-``io/hdf5io.py``), so both packages read and write the same files. ``fit`` is a thin wrapper around ``run_fit``, which takes
-arrays in memory; ``musefit`` wraps ``muse.pipeline.run_musefit``.
+``--device`` (default ``cuda``) for the subcommands that compute. The data
+generators, the HDF5 schema and the post-processing are this package's
+copies of the JAX package's (``datagen/generators.py``, ``io/hdf5io.py``,
+``postprocess.py``), so both packages read and write the same files.
+``fit`` is a thin wrapper around ``run_fit`` and ``refine`` around
+``run_refine``, which take arrays in memory; ``musefit`` wraps
+``muse.pipeline.run_musefit``.
 """
 
 from __future__ import annotations
@@ -62,15 +68,6 @@ def cmd_gen(args):
     path = args.out or FILENAME_STEMS[args.kind].format(N=args.N)
     save_dataset(data, path)
     print(f"wrote {path}: x{data['x'].shape} y{data['y'].shape}")
-
-
-# subcommands of the JAX CLI that this port does not carry yet, with the
-# ROADMAP.md queue 1 item that ports each
-_NOT_PORTED = {
-    "refine": "13", "plot-evidences": "16",
-    "plot-scaling": "16", "plot-posterior": "16", "plot-bestfit": "16",
-    "plot-muse-posterior": "16",
-}
 
 
 def _not_ported_cmd(name, item):
@@ -160,6 +157,153 @@ def cmd_check(args):
             print(f"  dataset {d}: logZ={logZ[d]:.2f}+-{logZerr[d]:.2f}  {stats}")
 
 
+def _fit_arrays(out) -> dict:
+    """``u, w, L, logZ, logZerr`` of a fit, from an ``NSResult`` or from
+    the dict that ``read_results`` gives."""
+    keys = ("u", "w", "L", "logZ", "logZerr")
+    if isinstance(out, dict):
+        return {k: np.asarray(out[k]) for k in keys}
+    return {k: np.asarray(getattr(out, k)) for k in keys}
+
+
+def refine_init_u(out, ndim: int) -> np.ndarray:
+    """One resampled nested-sampling posterior point per dataset, the
+    chains' starting points: the JAX CLI's code and seed
+    (``massivedatans_tpu/cli.py:297-305``), so both packages pick the same
+    rows of the same fit."""
+    out = _fit_arrays(out)
+    D = out["logZ"].shape[0]
+    w = (out["w"] + out["L"]).astype(np.float64)
+    w[~np.isfinite(w)] = -np.inf
+    rng = np.random.default_rng(0)
+    init_u = np.empty((D, ndim), np.float32)
+    for d in range(D):
+        p = np.exp(w[:, d] - w[:, d].max())
+        p /= p.sum()
+        init_u[d] = out["u"][rng.choice(len(p), p=p), d, :]
+    return init_u
+
+
+def run_refine(problem, out, *, device, backend: str = "both",
+               num_warmup: int = 300, num_samples: int = 300,
+               vi_steps: int = 1500, max_datasets: int = 4):
+    """Refine a fit of ``problem`` on ``device``: batched HMC from one
+    posterior point per dataset (generator seed 0) and mean-field VI
+    evidences (seed 1), as the JAX CLI's ``refine`` does, printing its
+    lines. ``out`` is the fit: an ``NSResult`` or ``read_results``'s
+    dict. Returns ``(init_u, hmc_result or None, vi_result or None)``."""
+    from massivedatans_tpu_torch.config import set_fp32_precision
+    from massivedatans_tpu_torch.infer import run_hmc, run_vi
+
+    set_fp32_precision()
+    device = torch.device(device)
+    out = _fit_arrays(out)
+    D = out["logZ"].shape[0]
+    init_u = refine_init_u(out, problem.ndim)
+    hmc = vi = None
+    if backend in ("hmc", "both"):
+        hmc = run_hmc(problem, torch.Generator(device=device).manual_seed(0),
+                      device=device, init_u=init_u, num_warmup=num_warmup,
+                      num_samples=num_samples)
+        print(f"HMC: mean accept {float(hmc.accept_rate.mean()):.2f}")
+        xs = hmc.x.cpu().numpy()
+        for d in range(min(D, max_datasets)):
+            stats = "  ".join(
+                f"p{j}={xs[:, d, j].mean():.3f}+-{xs[:, d, j].std():.3f}"
+                for j in range(problem.ndim))
+            print(f"  dataset {d}: {stats}")
+    if backend in ("vi", "both"):
+        vi = run_vi(problem, torch.Generator(device=device).manual_seed(1),
+                    device=device, init_u=init_u, steps=vi_steps)
+        iw = vi.logZ_iw.cpu().numpy()
+        dns = iw - out["logZ"]
+        print(f"VI: median |logZ_IW - logZ_NS| = "
+              f"{float(np.median(np.abs(dns))):.2f} "
+              f"(NS MC error ~{float(np.median(out['logZerr'])):.2f})")
+        for d in range(min(D, max_datasets)):
+            print(f"  dataset {d}: logZ_IW={iw[d]:.2f}  "
+                  f"logZ_NS={out['logZ'][d]:.2f}+-{out['logZerr'][d]:.2f}")
+    return init_u, hmc, vi
+
+
+def cmd_refine(args):
+    from massivedatans_tpu_torch.io.hdf5io import load_spectra, read_results
+
+    device = _resolve_device(args.device)
+    out = read_results(args.output)
+    D = out["logZ"].shape[0]
+    if args.muse is not None:
+        from massivedatans_tpu_torch.muse.likelihood import make_muse_problem
+        from massivedatans_tpu_torch.muse.model import load_template_grid
+        from massivedatans_tpu_torch.muse.pipeline import load_muse_cube
+
+        region, zlo, zhi = args.muse
+        cube = load_muse_cube(args.data, region, maxdata=D)
+        md = load_template_grid(args.muse_templates,
+                                data_wl_nm=cube.wavelength_nm,
+                                zlo=float(zlo), zhi=float(zhi), device=device)
+        problem = make_muse_problem(md, cube.y, cube.var)
+    else:
+        from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
+
+        x_grid, y = load_spectra(args.data, D)
+        problem = make_gaussline_problem(x_grid, y,
+                                         noise_level=args.noise_level,
+                                         device=device)
+    run_refine(problem, out, device=device, backend=args.backend,
+               num_warmup=args.num_warmup, num_samples=args.num_samples,
+               vi_steps=args.vi_steps, max_datasets=args.max_datasets)
+
+
+def cmd_plot_evidences(args):
+    from massivedatans_tpu_torch import postprocess as pp
+    from massivedatans_tpu_torch.io.hdf5io import load_spectra, read_results
+
+    _, y = load_spectra(args.data)
+    out = read_results(args.output)
+    B = pp.plot_evidences(out, y[:, :out["logZ"].shape[0]], path=args.out)
+    print(f"median log10 B = {np.median(B):.2f}; wrote {args.out}")
+
+
+def cmd_plot_posterior(args):
+    from massivedatans_tpu_torch import postprocess as pp
+    from massivedatans_tpu_torch.io.hdf5io import read_results
+
+    out = read_results(args.output)
+    pp.plot_posterior(out, d=args.dataset, path=args.out)
+    print("wrote", args.out)
+
+
+def cmd_plot_bestfit(args):
+    from massivedatans_tpu_torch import postprocess as pp
+    from massivedatans_tpu_torch.io.hdf5io import load_spectra, read_results
+    from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
+
+    out = read_results(args.output)
+    x, y = load_spectra(args.data, out["logZ"].shape[0])
+    problem = make_gaussline_problem(x, y, noise_level=args.noise_level)
+    paths = pp.plot_bestfit(out, problem, datasets=args.datasets,
+                            path_prefix=args.prefix)
+    print(f"wrote {len(paths)} plots -> {args.prefix}_*.pdf")
+
+
+def cmd_plot_muse_posterior(args):
+    from massivedatans_tpu_torch import postprocess as pp
+    from massivedatans_tpu_torch.io.hdf5io import read_results
+
+    out = read_results(args.output)
+    done = pp.plot_muse_posterior(out, min_finite=args.min_finite,
+                                  size=args.size, path_prefix=args.prefix)
+    print(f"plotted {len(done)} datasets -> {args.prefix}_*.pdf")
+
+
+def cmd_plot_scaling(args):
+    from massivedatans_tpu_torch import postprocess as pp
+
+    N, draws = pp.plot_scaling(args.stats, path=args.out)
+    print("N:", list(N), "draws:", list(draws), "-> wrote", args.out)
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     p = argparse.ArgumentParser(prog="massivedatans_tpu_torch")
@@ -223,10 +367,65 @@ def main(argv=None):
                    help="wavelength axis sharded over devices: not ported")
     m.set_defaults(fn=cmd_musefit)
 
-    for name, item in _NOT_PORTED.items():
-        n = sub.add_parser(name, help=f"not ported yet (ROADMAP item {item})")
-        n.add_argument("rest", nargs=argparse.REMAINDER)
-        n.set_defaults(fn=_not_ported_cmd(name, item))
+    r = sub.add_parser(
+        "refine",
+        help="gradient-based refinement/cross-check of an NS run: batched "
+             "per-dataset HMC posteriors and/or mean-field VI evidences")
+    r.add_argument("data", help="spectra HDF5, or a FITS cube with --muse")
+    r.add_argument("output", help="the fit's .out8.hdf5 (seeds the chains)")
+    r.add_argument("--backend", default="both", choices=["hmc", "vi", "both"])
+    r.add_argument("--num-warmup", type=int, default=300)
+    r.add_argument("--num-samples", type=int, default=300)
+    r.add_argument("--vi-steps", type=int, default=1500)
+    r.add_argument("--noise-level", type=float, default=0.01)
+    r.add_argument("--max-datasets", type=int, default=4)
+    r.add_argument("--muse", nargs=3, metavar=("REGION", "ZLO", "ZHI"),
+                   default=None,
+                   help="treat `data` as a MUSE cube: ds9 region, zlo, zhi")
+    r.add_argument("--muse-templates", nargs="+", default=None)
+    r.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    r.set_defaults(fn=cmd_refine)
+
+    pe = sub.add_parser("plot-evidences",
+                        help="Bayes factors vs no-signal (plotevidences.py)")
+    pe.add_argument("data")
+    pe.add_argument("output")
+    pe.add_argument("--out", default="plotevidences.pdf")
+    pe.set_defaults(fn=cmd_plot_evidences)
+
+    ps = sub.add_parser("plot-scaling",
+                        help="evals vs N scaling (plotscaling.py)")
+    ps.add_argument("stats", nargs="+")
+    ps.add_argument("--out", default="scaling.pdf")
+    ps.set_defaults(fn=cmd_plot_scaling)
+
+    pp_ = sub.add_parser("plot-posterior",
+                         help="marginal posteriors (plotposterior.py)")
+    pp_.add_argument("output")
+    pp_.add_argument("--dataset", type=int, default=0)
+    pp_.add_argument("--out", default="posterior.pdf")
+    pp_.set_defaults(fn=cmd_plot_posterior)
+
+    pb = sub.add_parser(
+        "plot-bestfit",
+        help="best-fit model vs data per dataset (musefuse.py emits these "
+             "from inside the likelihood; here post-hoc)")
+    pb.add_argument("data")
+    pb.add_argument("output")
+    pb.add_argument("--datasets", type=int, nargs="+", default=[0])
+    pb.add_argument("--noise-level", type=float, default=0.01)
+    pb.add_argument("--prefix", default="bestfit")
+    pb.set_defaults(fn=cmd_plot_bestfit)
+
+    pm = sub.add_parser(
+        "plot-muse-posterior",
+        help="per-spaxel posterior corner plots (plotmuseposterior.py)")
+    pm.add_argument("output")
+    pm.add_argument("--min-finite", type=int, default=4000)
+    pm.add_argument("--size", type=int, default=100000)
+    pm.add_argument("--prefix", default="museposterior")
+    pm.set_defaults(fn=cmd_plot_muse_posterior)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -23,7 +23,10 @@ class Problem(nn.Module):
     - ``loglike(x[B, ndim]) -> L[B, D]`` (reference ``multi_loglikelihood``,
       sample.py:101-108, against all datasets).
 
-    ``loglike_paired`` and ``predict_one`` are optional hooks.
+    ``loglike_paired`` and ``predict_one`` have defaults that a subclass
+    may override: the paired likelihood falls back to the diagonal of the
+    ``[D, D]`` batch likelihood, and ``predict_one`` gives ``None`` (no
+    model curve).
     """
 
     name = "problem"
@@ -47,16 +50,26 @@ class Problem(nn.Module):
         return self.loglike(x)
 
     def loglike_paired(self, x):
-        raise NotImplementedError(
-            "loglike_paired (one likelihood per dataset, for the gradient "
-            "backends) is not ported yet (ROADMAP.md queue 1, item 13)")
+        """``L[..., d]``: dataset d scored against its own parameter vector
+        ``x[..., d, :]``, for the gradient backends (``infer/``).
+
+        This default takes the diagonal of the full ``[D, D]`` batch
+        likelihood, O(D^2) per call, once for each index of the leading
+        axes: flattening them into the batch would pair row ``n*D + d``
+        with dataset ``d`` only by accident of the layout and grow the
+        block to ``[n*D, n*D]``. Subclasses with an O(D) paired kernel
+        override it.
+        """
+        lead = x.shape[:-2]
+        flat = x.reshape(-1, *x.shape[-2:])
+        rows = [torch.diagonal(self.loglike(xi)) for xi in flat]
+        return torch.stack(rows).reshape(*lead, x.shape[-2])
 
     def predict_one(self, x):
         """One model curve ``ypred[nx]`` for the parameter vector
-        ``x[ndim]`` (the JAX ``Problem.predict_fn``), for best-fit plots."""
-        raise NotImplementedError(
-            f"{type(self).__name__} has no predict_one; the plotting layer "
-            "that reads it is not ported yet (ROADMAP.md queue 1, item 16)")
+        ``x[ndim]`` (the JAX ``Problem.predict``), for best-fit plots;
+        ``None`` for a problem without a model curve."""
+        return None
 
     def loglike_sharded(self, x, model_axis_name=None):
         raise NotImplementedError(

@@ -63,12 +63,15 @@ def scaled_loglike_batch(md: MuseModelData, y_over_v, inv_v, yy, x_batch,
 
 def scaled_loglike_paired(md: MuseModelData, y_over_v, inv_v, yy, x,
                           zsol: bool = False):
-    """``L[d]`` of spaxel d under its own parameter vector ``x[d]``."""
-    ypred = predict_batch(md, x, zsol=zsol)              # [D, nspec]
-    dead = torch.all(ypred == 0.0, dim=1)
-    ypred = _unit_scale(ypred)
-    s1 = torch.einsum("dn,nd->d", ypred, y_over_v)
-    s2 = torch.einsum("dn,nd->d", torch.square(ypred), inv_v)
+    """``L[..., d]`` of spaxel d under its own parameter vector
+    ``x[..., d, :]``; leading axes broadcast (the synthesis is row by
+    row, so they are flattened into its batch and restored after)."""
+    lead, ndim = x.shape[:-1], x.shape[-1]
+    ypred = predict_batch(md, x.reshape(-1, ndim), zsol=zsol)  # [n*D, nspec]
+    dead = torch.all(ypred == 0.0, dim=1).reshape(lead)
+    ypred = _unit_scale(ypred).reshape(*lead, -1)          # [..., D, nspec]
+    s1 = (ypred * y_over_v.T).sum(dim=-1)
+    s2 = (torch.square(ypred) * inv_v.T).sum(dim=-1)
     return torch.where(dead, -torch.inf, _profiled_loglike(s1, s2, yy))
 
 

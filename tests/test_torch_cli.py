@@ -1,11 +1,15 @@
-"""CLI surface of the port: gen -> fit -> check, musefit, the device
-switch, and a fresh process that runs the port without importing JAX."""
+"""CLI surface of the port: gen -> fit -> check -> refine -> plot-*,
+musefit, the device switch, and a fresh process that runs the port
+without importing JAX."""
 
+import json
 import os
 import subprocess
 import sys
+import types
 
 import h5py
+import numpy as np
 import pytest
 import torch
 
@@ -67,10 +71,102 @@ def test_default_cuda_device_without_card_exits(tmp_path, monkeypatch):
 
 
 def test_unported_subcommands_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli.main(["refine", "data.hdf5", "out.hdf5"])
+    """Only the multi-device options (ROADMAP item 15) are refused."""
     with pytest.raises(NotImplementedError, match="item 15"):
         cli.main(["fit", "d.hdf5", "2", "--device", "cpu", "--devices", "2"])
+
+
+def test_gen_fit_check_refine_plot_roundtrip(tmp_path, monkeypatch, capsys):
+    """tests/test_cli.py::test_gen_fit_check_refine_roundtrip on the port,
+    with its sizes and asserted lines, then every plot-* subcommand."""
+    monkeypatch.chdir(tmp_path)
+    cli.main(["gen", "horns", "50", "--out", "d.hdf5"])
+    monkeypatch.setenv("NLIVE_POINTS", "50")
+    monkeypatch.setenv("MAXSAMPLES", "250")
+    cli.main(["fit", "d.hdf5", "4", "--device", "cpu", "--quiet"])
+    out_file = "d.hdf5_MLFRIENDS_nlive50_4.out8.hdf5"
+    assert os.path.exists(out_file)
+    cli.main(["check", out_file, "--max-datasets", "2"])
+    text = capsys.readouterr().out
+    assert "logZ[0]" in text and "dataset 1:" in text
+
+    cli.main(["refine", "d.hdf5", out_file, "--device", "cpu",
+              "--num-warmup", "40", "--num-samples", "40",
+              "--vi-steps", "60", "--max-datasets", "2"])
+    text = capsys.readouterr().out
+    assert "HMC: mean accept" in text
+    assert "VI: median |logZ_IW - logZ_NS|" in text
+    assert "  dataset 1: p0=" in text and "  dataset 1: logZ_IW=" in text
+    assert "dataset 2:" not in text
+
+    cli.main(["plot-posterior", out_file, "--out", "post.pdf"])
+    cli.main(["plot-muse-posterior", out_file, "--min-finite", "10",
+              "--size", "500", "--prefix", "mp"])
+    cli.main(["plot-evidences", "d.hdf5", out_file, "--out", "ev.pdf"])
+    cli.main(["plot-bestfit", "d.hdf5", out_file, "--datasets", "0", "3",
+              "--prefix", "bf"])
+    with open("d.hdf5_MLFRIENDS_nlive50_4.out8.stats.json") as fh:
+        stats = json.load(fh)
+    with open("s2.json", "w") as fh:
+        json.dump(dict(stats, ndata=40, ndraws=3 * stats["ndraws"]), fh)
+    cli.main(["plot-scaling", "d.hdf5_MLFRIENDS_nlive50_4.out8.stats.json",
+              "s2.json", "--out", "sc.pdf"])
+    for path in ("post.pdf", "mp_1.pdf", "mp_4.pdf", "ev.pdf", "bf_0.pdf",
+                 "bf_3.pdf", "sc.pdf"):
+        assert os.path.getsize(path) > 0, path
+    text = capsys.readouterr().out
+    assert "median log10 B = " in text and "wrote 2 plots" in text
+    assert "plotted 4 datasets" in text and "-> wrote sc.pdf" in text
+
+
+def test_refine_picks_the_jax_cli_rows(tmp_path, monkeypatch):
+    """``refine_init_u`` picks, from a fixed fit file, the rows that the
+    JAX CLI's ``refine`` picks (``massivedatans_tpu/cli.py:297-305``, run
+    on the same files with its HMC stubbed to catch them), bit for bit."""
+    import massivedatans_tpu.infer as jax_infer
+    from massivedatans_tpu import cli as jax_cli
+    from massivedatans_tpu_torch.datagen.generators import gen_horns, save_dataset
+    from massivedatans_tpu_torch.io.hdf5io import read_results, write_results
+
+    monkeypatch.chdir(tmp_path)
+    save_dataset(gen_horns(20), "d.hdf5")
+    rng = np.random.default_rng(11)
+    n, D, ndim = 60, 5, 3
+    L = rng.normal(-50, 3, size=(n, D)).astype(np.float32)
+    L[7, 2] = -np.inf  # an inactive row
+    result = types.SimpleNamespace(
+        logZ=rng.normal(size=D), logZerr=rng.uniform(0.1, 0.3, D),
+        u=rng.uniform(size=(n, D, ndim)).astype(np.float32),
+        x=rng.uniform(size=(n, D, ndim)).astype(np.float32), L=L,
+        w=-np.linspace(0, 6, n)[:, None].repeat(D, 1).astype(np.float32),
+        mask=np.ones((n, D), bool), ndraws=99, duration=1.0, stats={})
+    write_results("f", result)
+
+    caught = {}
+
+    class Caught(Exception):
+        pass
+
+    def stub(problem, key, init_u=None, **kw):
+        caught["init_u"] = np.asarray(init_u)
+        raise Caught
+
+    monkeypatch.setattr(jax_infer, "run_hmc", stub)
+    with pytest.raises(Caught):
+        jax_cli.main(["refine", "d.hdf5", "f.hdf5", "--backend", "hmc"])
+    want = caught["init_u"]
+    got = cli.refine_init_u(read_results("f.hdf5"), ndim)
+    assert got.dtype == want.dtype == np.float32 and got.shape == (D, ndim)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(cli.refine_init_u(result, ndim), want)
+
+
+def test_refine_default_cuda_device_without_card_exits(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["refine", "d.hdf5", "out.hdf5"])
+    assert "--device cpu" in str(exc.value.code)
 
 
 @pytest.fixture

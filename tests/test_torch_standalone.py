@@ -56,6 +56,42 @@ def test_every_port_module_imports_in_a_fresh_process_without_jax():
     assert proc.stdout.startswith("ok") and int(proc.stdout.split()[1]) > 20
 
 
+def test_infer_and_postprocess_import_without_jax_or_matplotlib():
+    """The gradient backends and the post-processing copy import in a
+    fresh process where matplotlib cannot be imported (as on the card's
+    machine); the numbers still come, the plots say what is missing."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None  # import matplotlib -> ImportError\n"
+        "import numpy as np, torch\n"
+        "from massivedatans_tpu_torch import postprocess as pp\n"
+        "from massivedatans_tpu_torch.infer import run_hmc, run_vi\n"
+        "from massivedatans_tpu_torch.models.analytic import "
+        "make_analytic_gaussian_problem\n"
+        "out = dict(w=np.zeros((5, 2), np.float32), L=np.arange(10.0, "
+        "dtype=np.float32).reshape(5, 2))\n"
+        "assert abs(pp.posterior_weights(out, 1).sum() - 1) < 1e-12\n"
+        "try:\n"
+        "    pp.plot_corner(np.zeros((4, 2)))\n"
+        "    raise SystemExit('plotted without matplotlib')\n"
+        "except ImportError:\n"
+        "    pass\n"
+        "p = make_analytic_gaussian_problem(np.full((2, 3), 0.5))\n"
+        "r = run_vi(p, torch.Generator().manual_seed(0), device='cpu', "
+        "steps=3, iw_samples=4)\n"
+        "assert torch.isfinite(r.logZ_iw).all()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def _sources():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
