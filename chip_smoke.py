@@ -37,7 +37,12 @@ version on the card:
   ``run_refine`` (the function behind ``python -m massivedatans_tpu_torch
   refine``) at its defaults (HMC 300 / 300 / 24, VI 1500 steps) on the
   horns fit of phase 4, and with HMC cut to 150 / 150 iterations on the
-  MUSE fit of phase 6, both held in memory.
+  MUSE fit of phase 6, both held in memory;
+- sharded: the horns fit of phase 4 on a dataset mesh
+  (``parallel/``), each rank a process of its own: one rank under NCCL,
+  then two ranks sharing the card under gloo (staged through the host),
+  and NCCL across the cards where there are two or more; then the
+  model-parallel likelihoods on a (data 1, model 2) mesh on the card.
 
 Phases, each of which raises on failure:
 
@@ -101,7 +106,26 @@ Phases, each of which raises on failure:
    mean wall of a warmup and of a sampling iteration; for VI, the walls of
    its fit loop and of its final ELBO and importance weights, steps per
    second and the mean wall of a step of the fit loop;
-9. print one JSON line of kernel records, then the card's line, then the
+9. the sharded path (``sharded_phase``): each rank sets its launch and
+   collective counters to 0, runs the horns fit of phase 4 on the mesh and
+   reads them. At one NCCL rank every collective is an identity: logZ,
+   logZerr, L, u, w and mask (by SHA-256), iterations, evaluations, fill
+   rounds and both kernels' launches must be phase 4's bit for bit. Two
+   ranks on the card (gloo) and, with two or more cards, NCCL across
+   min(cards, 4) of them must hold phase 4's quadrature bar; in every run
+   each rank must launch both kernels, ``count_within`` once per region
+   round. Then two ranks on the card (data 1 x model 2, gloo) evaluate
+   the gaussline and MUSE likelihoods of ``MP_BATCH`` candidates (phase
+   4's spectra, phase 6's cube): the gaussline model-parallel one is held
+   to the single-device one at the JAX test's rtol and atol; the MUSE
+   single-device and model-parallel ones to a float64 witness from the
+   same templates, spectra and candidates at the JAX test's rtol and atol
+   plus ``MUSE_CANCEL`` * yy, which a TF32 contraction of the same
+   candidates must fail (``_against``). Print one JSON line
+   ``{"sharded": [...]}``: per run its world, backend, walls, evaluations,
+   fill rounds, collective calls per fill round, wall per round, launches
+   per rank and its bars;
+10. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
@@ -112,6 +136,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -203,6 +228,20 @@ MUSE_IW_SLACK = 3
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 DEVICE = "cuda"
+# the sharded phase: a collective waiting longer than this fails the run
+SHARDED_TIMEOUT_S = 300
+MP_BATCH = 128  # RunConfig.eval_batch: one fill round's candidates
+# model-parallel likelihood tolerances: tests/test_parallel.py:151
+# (gaussline) and tests/test_muse.py:232 (MUSE)
+MP_TOL = {"gaussline": (2e-5, 2e-4), "muse": (1e-4, 1e-3)}
+# A float32 MUSE chi^2 cancels from terms of the size of yy (up to 1e7 on
+# phase 6's cube, where one float32 ulp is 1), so no float32 path meets
+# atol + rtol |L| against float64. The single-device and the sharded
+# likelihoods are held to a float64 witness at that bar plus
+# MUSE_CANCEL * yy: 2^-17 lies halfway, in binary digits, between
+# float32's unit roundoff 2^-24 and TF32's 2^-11 (rounded up), and a
+# TF32 contraction must fail it.
+MUSE_CANCEL = 2.0 ** -17
 
 
 def _time_ms(fn, n=TIMING_LAUNCHES):
@@ -640,8 +679,14 @@ def main(argv=None):
                               region_rounds=0), counts
         print(json.dumps({"backends": backends}))
 
-    # --- phase 9: records ---
-    phase("phase 9: records")
+        # --- phase 9: the sharded path ---
+        phase("phase 9: the sharded path")
+        sharded_recs = sharded_phase(data, cfg, result, launches, wall, quad,
+                                     fixture)
+        print(json.dumps({"sharded": sharded_recs}))
+
+    # --- phase 10: records ---
+    phase("phase 10: records")
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":
@@ -658,6 +703,10 @@ def main(argv=None):
                                  for k, v in strategy_launches.items()},
             launches_resume=resume_launches[name],
             launches_muse_escalated=escalated_launches[name],
+            # per rank, for each sharded fit
+            launches_sharded={f"{r['backend']} world {r['world']}":
+                              [c[name] for c in r["launches"]]
+                              for r in sharded_recs if "launches" in r},
             region_rounds=launches["region_rounds"],
             region_rounds_muse=muse_launches["region_rounds"],
             max_abs_err=max(r["max_abs_err"] for r in recs),
@@ -1074,6 +1123,228 @@ def resume_phase(run_fit, cfg, data, full, ckpt_dir):
     assert all(same.values()), same
     assert (resumed.niterations, resumed.ndraws, resumed.stats["fill_rounds"]) \
         == (full.niterations, full.ndraws, full.stats["fill_rounds"])
+
+
+def _sync_on(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sha(a):
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _sharded_fit_rank(rank, data, cfg):
+    """One rank of a sharded horns fit: counters to 0, the fit on the
+    mesh, counters read. Returns the rank's record (and, on rank 0, the
+    result's numbers and hashes)."""
+    from massivedatans_tpu_torch.cli import run_fit
+    from massivedatans_tpu_torch.ns import region
+    from massivedatans_tpu_torch.ops import neighbors
+    from massivedatans_tpu_torch.parallel import sharded
+
+    t0 = time.perf_counter()
+    mesh = sharded.make_mesh(rank.world, 1, rank.mesh_device_type)
+    # the first collective makes the communicator
+    sharded.global_any(torch.ones(1, device=rank.device),
+                       sharded.data_axis(mesh)[0])
+    setup_s = time.perf_counter() - t0
+    rounds = _count_rounds(region)
+    neighbors.count_within.launches = 0
+    neighbors.bootstrapped_sq_radius.launches = 0
+    for k in sharded.CALLS:
+        sharded.CALLS[k] = 0
+    _sync_on(rank.device)
+    t0 = time.perf_counter()
+    res = run_fit(data["x"], data["y"], cfg, rank.device,
+                  noise_level=data["noise_level"], mesh=mesh)
+    _sync_on(rank.device)
+    rec = dict(
+        wall_s=time.perf_counter() - t0, setup_s=setup_s,
+        calls=dict(sharded.CALLS),
+        launches=dict(count_within=neighbors.count_within.launches,
+                      bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
+                      region_rounds=len(rounds)))
+    if rank.rank == 0:  # the other ranks return no result
+        rec.update(timing=res.stats["timing"], logZ=res.logZ,
+                   logZerr=res.logZerr, niter=res.niterations,
+                   ndraws=res.ndraws, fill_rounds=res.stats["fill_rounds"],
+                   member_overflow=res.stats["member_overflow"],
+                   sha={k: _sha(getattr(res, k)) for k in ("L", "u", "w",
+                                                          "mask")})
+    return rec
+
+
+def _against(got, ref, rtol, atol, scale=None):
+    """``got`` against ``ref`` (``[B, D]``; dead rows -inf in both) at the
+    bar ``atol + rtol |ref|``, plus ``scale[d]`` where given: the largest
+    error, its largest ratio to the bar and the entries beyond it."""
+    dead = torch.isneginf(ref)
+    err = torch.where(dead, 0.0, (got.double() - ref.double()).abs())
+    bar = atol + rtol * torch.where(dead, 0.0, ref.double().abs())
+    if scale is not None:
+        bar = bar + scale[None, :]
+    return dict(max_abs_err=float(err.max()),
+                max_err_over_bar=float((err / bar).max()),
+                beyond=int((err > bar).sum()),
+                dead_rows_match=bool(torch.equal(torch.isneginf(got), dead)),
+                finite=bool(torch.isfinite(got[~dead]).all()))
+
+
+def _muse_witness(md, cube, x):
+    """The MUSE likelihood of ``x`` in float64 from the same templates,
+    spectra and candidates, and its ``yy``."""
+    import copy
+
+    from massivedatans_tpu_torch.muse.likelihood import (
+        muse_weights,
+        scaled_loglike_batch,
+    )
+
+    f64 = dict(dtype=torch.float64, device=x.device)
+    y_over_v, inv_v, yy = (torch.as_tensor(a, **f64)
+                           for a in muse_weights(cube.y, cube.var))
+    md64 = copy.deepcopy(md).double()
+    return scaled_loglike_batch(md64, y_over_v, inv_v, yy, x.double()), yy
+
+
+def _mp_likelihood_rank(rank, data, cube, tpl):
+    """The gaussline and MUSE likelihoods of one fill round's candidates on
+    a (data 1, model 2) mesh: gaussline against the single-device one at
+    the JAX test's bar; MUSE, single-device, sharded and with TF32 on,
+    against a float64 witness (``MUSE_CANCEL``)."""
+    from massivedatans_tpu_torch.config import set_fp32_precision
+    from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
+    from massivedatans_tpu_torch.muse.likelihood import make_muse_problem
+    from massivedatans_tpu_torch.muse.model import load_template_grid
+    from massivedatans_tpu_torch.parallel import sharded
+
+    set_fp32_precision()
+    mesh = sharded.make_mesh(rank.world, 2, rank.mesh_device_type)
+    group = sharded.model_axis(mesh)[0]
+    gen = torch.Generator(device=rank.device).manual_seed(7)
+    md = load_template_grid(tpl, data_wl_nm=cube.wavelength_nm, zlo=0.0,
+                            zhi=0.5, device=rank.device)
+    gl = make_gaussline_problem(data["x"], data["y"], data["noise_level"],
+                                device=rank.device)
+    mu = make_muse_problem(md, cube.y, cube.var)
+    out = {}
+    for name, problem in dict(gaussline=gl, muse=mu).items():
+        u = torch.rand((MP_BATCH, problem.ndim), generator=gen,
+                       device=rank.device)
+        x = problem.transform_batch(u)
+        single = problem.loglike(x)
+        got = sharded.shard_problem(problem, mesh).loglike_sharded(x, group)
+        rec = dict(shape=list(got.shape),
+                   dead_rows=int(torch.isneginf(single).all(1).sum()),
+                   sharded_vs_single=_against(got, single, *MP_TOL[name]))
+        if name == "muse":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+            tf32 = problem.loglike(x)
+            set_fp32_precision()
+            ref, yy = _muse_witness(md, cube, x)
+            rec.update(yy_max=float(yy.max()), **{
+                f"{k}_vs_f64": _against(v, ref, *MP_TOL[name],
+                                        MUSE_CANCEL * yy)
+                for k, v in dict(single=single, sharded=got,
+                                 tf32=tf32).items()},
+                single_vs_f64_plain=_against(single, ref, *MP_TOL[name]))
+        _sync_on(rank.device)
+        out[name] = rec
+    return out
+
+
+def sharded_fit(world, backend, data, cfg, single, single_launches,
+                single_wall, quad):
+    """The horns fit of ``data`` on a mesh of ``world`` ranks, each on a
+    card (``backend``), held against the single-device fit ``single``
+    (its launches and wall beside): bit for bit at one rank, the
+    quadrature bar ``quad`` always, both kernels on every rank. Prints
+    and returns its record."""
+    from massivedatans_tpu_torch.parallel import spawn_ranks
+
+    nq = len(quad)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_sharded_fit_rank, world, backend, DEVICE,
+                        SHARDED_TIMEOUT_S, data, cfg)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    dq = np.abs(r0["logZ"][:nq] - quad)
+    within = int((dq < 3 * r0["logZerr"][:nq] + 0.5).sum())
+    rounds = r0["fill_rounds"]
+    rec = dict(
+        fit=f"horns ndata={data['y'].shape[1]} nlive={cfg.nlive_points}",
+        world=world, backend=backend,
+        ranks_per_card=(-(-world // max(1, torch.cuda.device_count()))
+                        if backend == "gloo" else 1),
+        wall_s=r0["wall_s"], wall_s_ranks=[r["wall_s"] for r in ranks],
+        setup_s=r0["setup_s"], spawn_s=spawn_s,
+        wall_s_single=single_wall, niter=r0["niter"],
+        niter_single=single.niterations, ndraws=r0["ndraws"],
+        ndraws_single=single.ndraws, fill_rounds=rounds,
+        fill_rounds_single=single.stats["fill_rounds"],
+        all_reduce_per_round=r0["calls"]["all_reduce"] / rounds,
+        all_gather_per_round=r0["calls"]["all_gather"] / rounds,
+        wall_ms_per_round=1e3 * r0["wall_s"] / rounds,
+        wall_ms_per_round_single=1e3 * single_wall
+        / single.stats["fill_rounds"],
+        calls=r0["calls"], launches=[r["launches"] for r in ranks],
+        member_overflow=r0["member_overflow"], timing=r0["timing"],
+        quad_within=within, quad_held=nq)
+    if world == 1:
+        rec["bitwise"] = dict(
+            logZ=bool(np.array_equal(r0["logZ"], single.logZ)),
+            logZerr=bool(np.array_equal(r0["logZerr"], single.logZerr)),
+            **{k: r0["sha"][k] == _sha(getattr(single, k))
+               for k in r0["sha"]},
+            counts=(r0["niter"], r0["ndraws"], rounds) == (
+                single.niterations, single.ndraws,
+                single.stats["fill_rounds"]),
+            launches=r0["launches"] == single_launches)
+    else:
+        dz = np.abs(r0["logZ"] - single.logZ)
+        rec.update(max_abs_dlogZ_vs_single=float(dz.max()),
+                   datasets_bitwise_vs_single=int((dz == 0).sum()))
+    print(json.dumps({k: v for k, v in rec.items() if k != "timing"}))
+    for r in ranks:  # every rank ran both kernels, one count per round
+        c = r["launches"]
+        assert c["count_within"] > 0 and c["bootstrapped_sq_radius"] > 0, c
+        assert c["count_within"] == c["region_rounds"], c
+    assert np.isfinite(r0["logZ"]).all() and (r0["logZerr"] > 0).all()
+    assert within >= int(np.ceil(0.95 * nq)), (world, backend, within)
+    if world == 1:
+        assert all(rec["bitwise"].values()), rec["bitwise"]
+    return rec
+
+
+def sharded_phase(data, cfg, single, single_launches, single_wall, quad,
+                  fixture):
+    """Phase 9 (see the module docstring). Returns the records."""
+    from massivedatans_tpu_torch.parallel import spawn_ranks
+
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    runs = [(1, "nccl" if DEVICE == "cuda" else "gloo"), (2, "gloo")]
+    if cards >= 2:
+        runs.append((min(cards, 4), "nccl"))
+    recs = [sharded_fit(world, backend, data, cfg, single, single_launches,
+                        single_wall, quad) for world, backend in runs]
+    cube, tpl, _ = fixture
+    t0 = time.perf_counter()
+    mp = spawn_ranks(_mp_likelihood_rank, 2, "gloo", DEVICE,
+                     SHARDED_TIMEOUT_S, data, cube, tpl)
+    rec = dict(likelihoods="model parallel, data 1 x model 2, gloo, one card",
+               batch=MP_BATCH, tolerances=MP_TOL, muse_cancel=MUSE_CANCEL,
+               ranks=mp, spawn_s=time.perf_counter() - t0)
+    recs.append(rec)
+    print(json.dumps(rec))
+    held = [r["gaussline"]["sharded_vs_single"] for r in mp] + [
+        r["muse"][k] for r in mp for k in ("single_vs_f64", "sharded_vs_f64")]
+    assert all(h["beyond"] == 0 and h["dead_rows_match"] and h["finite"]
+               for h in held), mp
+    # the bar tells a TF32 contraction from a float32 one
+    assert all(r["muse"]["tf32_vs_f64"]["beyond"] > 0 for r in mp), mp
+    return recs
 
 
 def muse_fixture(tmp):

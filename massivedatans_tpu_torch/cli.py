@@ -17,12 +17,19 @@ copies of the JAX package's (``datagen/generators.py``, ``io/hdf5io.py``,
 ``fit`` is a thin wrapper around ``run_fit`` and ``refine`` around
 ``run_refine``, which take arrays in memory; ``musefit`` wraps
 ``muse.pipeline.run_musefit``.
+
+``fit`` and ``musefit`` take the JAX CLI's ``--devices N`` (the dataset
+axis) and ``--model-parallel M`` (the spectral axis): the run then starts
+N*M ranks itself (``parallel/launch.py``), with NCCL and one card per
+rank under ``--device cuda``, with gloo under ``--device cpu``; rank 0
+writes the output.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 import numpy as np
@@ -70,12 +77,34 @@ def cmd_gen(args):
     print(f"wrote {path}: x{data['x'].shape} y{data['y'].shape}")
 
 
-def _not_ported_cmd(name, item):
-    def fn(args):
-        raise NotImplementedError(
-            f"`{name}` is not ported to massivedatans_tpu_torch yet "
-            f"(ROADMAP.md queue 1, item {item})")
-    return fn
+def cli_mesh_shape(devices: int, model_parallel: int, device: torch.device):
+    """``(data, model)`` ranks from ``--devices``/``--model-parallel``, or
+    None for one device (the JAX CLI's ``_make_cli_mesh``).
+
+    ``--devices N`` is the size of the dataset axis; with
+    ``--model-parallel M`` the run uses N*M ranks (data=N, model=M), and
+    ``--model-parallel M`` alone shards the datasets over the remaining
+    ``available // M``. The ranks available are the cards under cuda (one
+    card per rank) and the CPU cores under cpu. Asking for more than exist
+    is an error (no silent truncation)."""
+    if devices <= 1 and model_parallel <= 1:
+        return None
+    available = (torch.cuda.device_count() if device.type == "cuda"
+                 else os.cpu_count() or 1)
+    mp = max(1, model_parallel)
+    n_data = devices if devices > 1 else max(1, available // mp)
+    need = n_data * mp
+    if need > available:
+        raise SystemExit(
+            f"requested mesh data={n_data} x model={mp} = {need} devices, "
+            f"but only {available} are available")
+    shape = {"data": n_data} | ({"model": mp} if mp > 1 else {})
+    print(f"mesh: {shape}", file=sys.stderr)
+    return n_data, mp
+
+
+def _cli_backend(device: torch.device) -> str:
+    return "nccl" if device.type == "cuda" else "gloo"
 
 
 def cmd_fit(args):
@@ -83,9 +112,8 @@ def cmd_fit(args):
         load_spectra, output_prefix, write_results,
     )
 
-    if args.devices > 1:
-        _not_ported_cmd("fit --devices > 1", "15")(args)
     device = _resolve_device(args.device)
+    shape = cli_mesh_shape(args.devices, args.model_parallel, device)
     cfg = RunConfig.from_env(**{k: v for k, v in dict(
         nlive_points=args.nlive,
         tolerance=args.tolerance,
@@ -93,41 +121,73 @@ def cmd_fit(args):
         constrainer=args.constrainer,
     ).items() if v is not None})
     x, y = load_spectra(args.data, args.ndata)
+    if shape is not None and y.shape[1] % shape[0]:
+        raise SystemExit(f"{y.shape[1]} datasets not divisible by the data "
+                         f"axis of {shape[0]} ranks")
     print(f"fitting {y.shape[1]} datasets on {device}, "
           f"nlive={cfg.nlive_points}, constrainer={cfg.constrainer}",
           file=sys.stderr)
-    result = run_fit(x, y, cfg, device, noise_level=args.noise_level,
-                     progress=not args.quiet,
-                     checkpoint_dir=args.checkpoint_dir,
-                     checkpoint_every=args.checkpoint_every)
+    run_opts = dict(checkpoint_dir=args.checkpoint_dir,
+                    checkpoint_every=args.checkpoint_every)
     prefix = output_prefix(args.data, cfg.constrainer, cfg.nlive_points,
                            y.shape[1])
+    if shape is None:
+        result = run_fit(x, y, cfg, device, noise_level=args.noise_level,
+                         progress=not args.quiet, **run_opts)
+    else:
+        from massivedatans_tpu_torch.models.gaussline import (
+            make_gaussline_problem,
+        )
+        from massivedatans_tpu_torch.parallel.launch import run_sharded
+
+        n_data, mp = shape
+        result = run_sharded(
+            make_gaussline_problem(x, y, noise_level=args.noise_level),
+            cfg, n_data * mp, _cli_backend(device), device.type,
+            model_parallel=mp, progress=not args.quiet, **run_opts)
     write_results(prefix, result)
     print("logZ = %.1f +- %.1f" % (result.logZ[0], result.logZerr[0]))
     print("ndraws:", result.ndraws, "niter:", result.u.shape[0])
     print("wrote", prefix + ".hdf5")
 
 
-def cmd_musefit(args):
-    import os
+def _musefit_rank(rank, mp, musefit_args):
+    """One rank of ``musefit --devices``: fit on the mesh; rank 0 writes
+    the output and returns the result, the other ranks None."""
+    from massivedatans_tpu_torch.muse.pipeline import run_musefit
+    from massivedatans_tpu_torch.parallel.sharded import make_mesh
 
+    mesh = make_mesh(rank.world, mp, rank.mesh_device_type)
+    return run_musefit(**musefit_args, mesh=mesh, device=rank.device)[0]
+
+
+def cmd_musefit(args):
     from massivedatans_tpu_torch.muse.pipeline import run_musefit
 
-    if args.devices > 1 or args.model_parallel > 1:
-        _not_ported_cmd("musefit --devices/--model-parallel > 1", "15")(args)
     device = _resolve_device(args.device)
+    shape = cli_mesh_shape(args.devices, args.model_parallel, device)
     model = args.model or os.environ.get("MODEL", "FULL")
     maxdata = args.maxdata
     if maxdata is None:
         maxdata = int(os.environ.get("MAXDATA", 0))
-    result, problem, cube = run_musefit(
-        args.cube, args.region, args.zlo, args.zhi, args.templates,
-        model=model, maxdata=maxdata,
+    musefit_args = dict(
+        cube_path=args.cube, region_path=args.region, zlo=args.zlo,
+        zhi=args.zhi, template_files=args.templates, model=model,
+        maxdata=maxdata,
         nlive=args.nlive or int(os.environ.get("NLIVE_POINTS", 400)),
         max_samples=args.max_samples, out_prefix=args.out,
-        checkpoint_dir=args.checkpoint_dir, ages_file=args.ages_file,
-        device=device,
-    )
+        checkpoint_dir=args.checkpoint_dir, ages_file=args.ages_file)
+    if shape is None:
+        result, _, _ = run_musefit(**musefit_args, device=device)
+    else:
+        from massivedatans_tpu_torch.parallel.launch import (
+            DEFAULT_TIMEOUT_S, spawn_ranks,
+        )
+
+        n_data, mp = shape
+        result = spawn_ranks(_musefit_rank, n_data * mp, _cli_backend(device),
+                             device.type, DEFAULT_TIMEOUT_S, mp,
+                             musefit_args)[0]
     print("logZ = %.1f +- %.1f" % (result.logZ[0], result.logZerr[0]))
     print("ndraws:", result.ndraws)
 
@@ -329,7 +389,12 @@ def main(argv=None):
     f.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     f.add_argument("--devices", type=int, default=1,
-                   help="datasets sharded over several devices: not ported")
+                   help="shard datasets over this many ranks (>1 enables "
+                        "the mesh path: NCCL, one card per rank, under "
+                        "--device cuda; gloo under --device cpu)")
+    f.add_argument("--model-parallel", type=int, default=1,
+                   help="also shard the spectral axis over this many ranks "
+                        "(2-D data x model mesh, the SP/CP analog)")
     f.add_argument("--checkpoint-dir", default=None,
                    help="persist sampler state here and resume from it")
     f.add_argument("--checkpoint-every", type=int, default=10,
@@ -362,9 +427,9 @@ def main(argv=None):
     m.add_argument("--checkpoint-dir", default=None,
                    help="persist sampler state here and resume from it")
     m.add_argument("--devices", type=int, default=1,
-                   help="spaxels sharded over several devices: not ported")
+                   help="shard spaxels over this many ranks")
     m.add_argument("--model-parallel", type=int, default=1,
-                   help="wavelength axis sharded over devices: not ported")
+                   help="also shard the wavelength axis (2-D mesh)")
     m.set_defaults(fn=cmd_musefit)
 
     r = sub.add_parser(

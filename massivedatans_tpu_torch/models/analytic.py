@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from massivedatans_tpu_torch.models.base import Problem
+from massivedatans_tpu_torch.parallel.sharded import dataset_block
 
 
 def analytic_loglike_batch(centers, sigma, x_batch):
@@ -53,6 +54,11 @@ class AnalyticGaussian(Problem):
 
     def loglike(self, x):
         return analytic_loglike_batch(self.centers, self.sigma, x)
+
+    def shard(self, rank_data, n_data, rank_model=0, n_model=1):
+        self.require_no_model_axis(n_model)
+        b = dataset_block(self.ndata, rank_data, n_data)
+        return AnalyticGaussian(self.centers[b], self.sigma)
 
 
 def make_analytic_gaussian_problem(centers, sigma=0.05, device="cpu") -> AnalyticGaussian:
@@ -105,6 +111,12 @@ class AnalyticBimodal(Problem):
     def loglike(self, x):
         return bimodal_loglike_batch(self.centers_a, self.centers_b,
                                      self.sigma, x)
+
+    def shard(self, rank_data, n_data, rank_model=0, n_model=1):
+        self.require_no_model_axis(n_model)
+        b = dataset_block(self.ndata, rank_data, n_data)
+        return AnalyticBimodal(self.centers_a[b], self.centers_b[b],
+                               self.sigma)
 
 
 def make_analytic_bimodal_problem(centers_a, centers_b, sigma=0.05,

@@ -5,6 +5,12 @@ transform plus a log-likelihood that scores a *batch* of parameter vectors
 against every dataset at once, returning ``L[B, D]``. Here a problem is an
 ``nn.Module`` whose data are buffers, so ``problem.to(device)`` moves them,
 and both methods are written batch-first (no vmap).
+
+Under a device mesh (``parallel/sharded.py``) each rank holds
+``problem.shard(...)``: its block of datasets and, where the model
+declares a spectral layout, its slice of the spectral axis. Each model
+declares its own layout (the counterpart of the JAX package's
+``problem_pspecs`` and ``MODEL_PSPEC_REGISTRY``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ class Problem(nn.Module):
     ``loglike_paired`` and ``predict_one`` have defaults that a subclass
     may override: the paired likelihood falls back to the diagonal of the
     ``[D, D]`` batch likelihood, and ``predict_one`` gives ``None`` (no
-    model curve).
+    model curve). ``shard`` and ``loglike_sharded`` serve the device mesh:
+    a subclass without ``shard`` cannot run on one, and one without its
+    own ``loglike_sharded`` cannot shard the spectral axis.
     """
 
     name = "problem"
@@ -71,7 +79,27 @@ class Problem(nn.Module):
         ``None`` for a problem without a model curve."""
         return None
 
-    def loglike_sharded(self, x, model_axis_name=None):
-        raise NotImplementedError(
-            "the spectral-axis sharded likelihood is not ported yet "
-            "(ROADMAP.md queue 1, item 15)")
+    def shard(self, rank_data: int, n_data: int, rank_model: int = 0,
+              n_model: int = 1) -> "Problem":
+        """This rank's part of the problem on a mesh of ``n_data`` x
+        ``n_model`` ranks: datasets in the contiguous block
+        ``parallel.sharded.dataset_block(ndata, rank_data, n_data)`` and,
+        for ``n_model`` > 1, the spectral slice ``model_block``."""
+        raise ValueError(f"{type(self).__name__} declares no sharded layout "
+                         "(Problem.shard)")
+
+    def require_no_model_axis(self, n_model: int) -> None:
+        """Raise for a model axis, in ``shard`` of a model without a
+        spectral layout (``problem_pspecs``, sharded.py:120-124)."""
+        if n_model > 1:
+            raise ValueError(f"mesh has a model axis but {type(self).__name__} "
+                             "has no model-parallel layout")
+
+    def loglike_sharded(self, x, model_group=None):
+        """``L[B, D]`` of this rank's datasets. Under a (data, model) mesh
+        ``model_group`` is the model axis and the spectral contraction is
+        reduced over it; with ``None`` this is ``loglike``."""
+        if model_group is None:
+            return self.loglike(x)
+        raise ValueError(f"{type(self).__name__} has no model-parallel "
+                         "likelihood")

@@ -11,6 +11,11 @@ The product is a plain float32 ``torch.matmul`` (the JAX package left it to
 XLA too). It must run in full float32: chi^2 needs >= 11 mantissa bits on
 its inputs and TF32 keeps 10, so callers on the card first set the
 precision with ``config.set_fp32_precision``.
+
+Under a (data, model) mesh the grid and the spectra are sliced on the
+spectral axis too (``GaussLine.shard``, the JAX package's
+``_gaussline_model_pspecs``) and ``chi2_loglike_batch_mp`` reduces the
+partial contractions over the model axis.
 """
 
 from __future__ import annotations
@@ -19,6 +24,11 @@ import numpy as np
 import torch
 
 from massivedatans_tpu_torch.models.base import Problem
+from massivedatans_tpu_torch.parallel.sharded import (
+    all_reduce,
+    dataset_block,
+    model_block,
+)
 
 
 def gaussline_prior_transform(u):
@@ -48,6 +58,20 @@ def chi2_loglike_batch(x_grid, y, ysq, noise_level, x_batch):
     return -0.5 * chi2 * inv_var
 
 
+def chi2_loglike_batch_mp(x_grid, y, ysq, noise_level, x_batch, model_group):
+    """Model-parallel ``L[B, D]`` (JAX ``chi2_loglike_batch_mp``): ``x_grid``
+    and ``y`` hold this rank's slice of the spectral axis; each rank
+    contracts its slice, the partial ``||ypred||^2 - 2 ypred . y`` terms
+    are summed over ``model_group``, and ``ysq`` (the full-spectrum sums,
+    float64 on the host) is added once after the sum."""
+    ypred = gaussline_predict(x_grid, x_batch)            # [B, nx / M]
+    cross = torch.matmul(ypred, y)
+    ssp = torch.square(ypred).sum(dim=1)
+    part = ssp[:, None] - 2.0 * cross                     # [B, D] partial
+    chi2 = all_reduce(part, model_group) + ysq[None, :]
+    return -0.5 * chi2 / torch.square(noise_level)
+
+
 def chi2_loglike_paired(x_grid, y, ysq, noise_level, x):
     """``L[..., d]`` of dataset d under its own parameter vector
     ``x[..., d, :]``: one curve per dataset, O(D * nx), for the gradient
@@ -72,12 +96,33 @@ class GaussLine(Problem):
         self.register_buffer("y", y)                      # [nx, D]
         self.register_buffer("ysq", ysq)                  # [D]
         self.register_buffer("noise_level", noise_level)  # scalar
+        self.n_model = 1  # ranks sharing the spectral axis (``shard``)
 
     def transform_batch(self, u):
         return gaussline_prior_transform(u)
 
     def loglike(self, x):
+        if self.n_model > 1:
+            raise ValueError("this problem holds a spectral slice: its "
+                             "likelihood is loglike_sharded(x, model_group)")
         return chi2_loglike_batch(self.x, self.y, self.ysq, self.noise_level, x)
+
+    def loglike_sharded(self, x, model_group=None):
+        if model_group is None:
+            return self.loglike(x)
+        return chi2_loglike_batch_mp(self.x, self.y, self.ysq,
+                                     self.noise_level, x, model_group)
+
+    def shard(self, rank_data, n_data, rank_model=0, n_model=1):
+        """Datasets in block ``rank_data`` of ``n_data``; grid and spectra
+        in spectral block ``rank_model`` of ``n_model``; ``ysq`` keeps
+        the full-spectrum sums of this rank's datasets."""
+        b = dataset_block(self.ndata, rank_data, n_data)
+        w = model_block(self.x.shape[0], rank_model, n_model)
+        out = GaussLine(self.x[w].contiguous(), self.y[w, b].contiguous(),
+                        self.ysq[b].contiguous(), self.noise_level)
+        out.n_model = n_model
+        return out
 
     def loglike_paired(self, x):
         return chi2_loglike_paired(self.x, self.y, self.ysq, self.noise_level,

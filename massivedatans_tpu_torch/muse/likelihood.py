@@ -19,6 +19,10 @@ m^2 flushes to zero in f32. Every entry point therefore rescales each
 candidate to max |m| = 1 first (``_unit_scale``). A candidate whose model
 spectrum is all zero ("no stars", musefuse.py:363-366) scores ``-inf``; the
 JAX package writes -1e100, which its float32 cast turns into -inf too.
+
+Under a (data, model) mesh each rank holds a wavelength slice of the
+weights (``MuseProblem.shard``) and ``scaled_loglike_batch_mp`` reduces
+``s1`` and ``s2`` over the model axis before the best-fit scale.
 """
 
 from __future__ import annotations
@@ -32,6 +36,11 @@ from massivedatans_tpu_torch.muse.model import (
     muse_prior_transform,
     muse_prior_transform_zsol,
     predict_batch,
+)
+from massivedatans_tpu_torch.parallel.sharded import (
+    all_reduce,
+    dataset_block,
+    model_block,
 )
 
 
@@ -57,6 +66,24 @@ def scaled_loglike_batch(md: MuseModelData, y_over_v, inv_v, yy, x_batch,
     ypred = _unit_scale(ypred)
     s1 = torch.matmul(ypred, y_over_v)
     s2 = torch.matmul(torch.square(ypred), inv_v)
+    L = _profiled_loglike(s1, s2, yy[None, :])
+    return torch.where(dead[:, None], -torch.inf, L)
+
+
+def scaled_loglike_batch_mp(md: MuseModelData, y_over_v, inv_v, yy, x_batch,
+                            wl_block: slice, model_group, zsol: bool = False):
+    """Model-parallel ``L[B, D]`` (JAX ``scaled_loglike_batch_mp``):
+    ``y_over_v`` and ``inv_v`` hold the wavelength bins ``wl_block`` of
+    this rank. The synthesis runs replicated and is scaled to unit max on
+    the FULL spectrum, so every rank applies the same scale; each rank
+    contracts its slice and ``s1``, ``s2`` are summed over
+    ``model_group`` before the nonlinear best-fit scale."""
+    ypred = predict_batch(md, x_batch, zsol=zsol)        # [B, nspec]
+    dead = torch.all(ypred == 0.0, dim=1)
+    ypred = _unit_scale(ypred)[:, wl_block]
+    s12 = torch.stack([torch.matmul(ypred, y_over_v),
+                       torch.matmul(torch.square(ypred), inv_v)])
+    s1, s2 = all_reduce(s12, model_group)
     L = _profiled_loglike(s1, s2, yy[None, :])
     return torch.where(dead[:, None], -torch.inf, L)
 
@@ -87,6 +114,9 @@ class MuseProblem(Problem):
         self.register_buffer("yy", yy)              # [D]
         self.zsol = zsol
         self.name = name
+        # this rank's wavelength bins and the ranks sharing them (``shard``)
+        self.wl_block = slice(0, y_over_v.shape[0])
+        self.n_model = 1
 
     def transform_batch(self, u):
         if self.zsol:
@@ -94,8 +124,31 @@ class MuseProblem(Problem):
         return muse_prior_transform(self.md, u)
 
     def loglike(self, x):
+        if self.n_model > 1:
+            raise ValueError("this problem holds a wavelength slice: its "
+                             "likelihood is loglike_sharded(x, model_group)")
         return scaled_loglike_batch(self.md, self.y_over_v, self.inv_v,
                                     self.yy, x, zsol=self.zsol)
+
+    def loglike_sharded(self, x, model_group=None):
+        if model_group is None:
+            return self.loglike(x)
+        return scaled_loglike_batch_mp(self.md, self.y_over_v, self.inv_v,
+                                       self.yy, x, self.wl_block, model_group,
+                                       zsol=self.zsol)
+
+    def shard(self, rank_data, n_data, rank_model=0, n_model=1):
+        """Spaxels in block ``rank_data`` of ``n_data``; weights in
+        wavelength block ``rank_model`` of ``n_model``; ``yy`` and the
+        templates stay whole."""
+        b = dataset_block(self.ndata, rank_data, n_data)
+        w = model_block(self.y_over_v.shape[0], rank_model, n_model)
+        out = MuseProblem(self.md, self.y_over_v[w, b].contiguous(),
+                          self.inv_v[w, b].contiguous(),
+                          self.yy[b].contiguous(), zsol=self.zsol,
+                          name=self.name)
+        out.wl_block, out.n_model = w, n_model
+        return out
 
     def loglike_paired(self, x):
         return scaled_loglike_paired(self.md, self.y_over_v, self.inv_v,
@@ -107,18 +160,25 @@ class MuseProblem(Problem):
         return predict_batch(self.md, x[None, :], zsol=self.zsol)[0]
 
 
-def make_muse_problem(md: MuseModelData, y, var, zsol: bool = False,
-                      name: str = "muse") -> MuseProblem:
-    """The MUSE problem from ``[nspec, D]`` flux and variance arrays, on
-    the device of ``md``. The weights are formed in float64 and invalid
-    bins zeroed before the float32 cast (an f32 ``yy`` would lose the
-    absolute accuracy chi^2 needs)."""
+def muse_weights(y, var):
+    """``(y/var, 1/var, yy)`` of ``[nspec, D]`` flux and variance arrays,
+    in float64 on the host, invalid bins (NaN, variance <= 0) zeroed."""
     y64 = np.asarray(y, np.float64)
     v64 = np.asarray(var, np.float64)
     valid = np.isfinite(y64) & np.isfinite(v64) & (v64 > 0)
     inv_v = np.where(valid, 1.0 / np.where(valid, v64, 1.0), 0.0)
     y_over_v = np.where(valid, y64 * inv_v, 0.0)
     yy = np.where(valid, y64 ** 2 * inv_v, 0.0).sum(axis=0)
+    return y_over_v, inv_v, yy
+
+
+def make_muse_problem(md: MuseModelData, y, var, zsol: bool = False,
+                      name: str = "muse") -> MuseProblem:
+    """The MUSE problem from ``[nspec, D]`` flux and variance arrays, on
+    the device of ``md``. The weights are formed in float64
+    (``muse_weights``) before the float32 cast (an f32 ``yy`` would lose
+    the absolute accuracy chi^2 needs)."""
+    y_over_v, inv_v, yy = muse_weights(y, var)
     f32 = dict(dtype=torch.float32, device=md.templates.device)
     return MuseProblem(md, torch.as_tensor(y_over_v, **f32),
                        torch.as_tensor(inv_v, **f32),

@@ -12,6 +12,9 @@ bad wavelength windows. The fit is in two layers:
 - ``run_musefit`` is the JAX package's entry point (same arguments, plus
   ``device``): load, fit, and write the reference output schema plus the
   MUSE datasets ``fiberids``, ``duration`` and ``ndata``.
+
+Under a device mesh both run in every rank of it, each on the whole cube
+(the integrator shards it); only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -27,10 +30,8 @@ from massivedatans_tpu_torch.muse.fitsio import fits_open, get_hdu
 from massivedatans_tpu_torch.muse.likelihood import make_muse_problem
 from massivedatans_tpu_torch.muse.model import load_template_grid
 from massivedatans_tpu_torch.muse.regions import parse_region_mask
-from massivedatans_tpu_torch.ns.integrator import (
-    multi_nested_integrator,
-    reject_unported,
-)
+from massivedatans_tpu_torch.ns.integrator import multi_nested_integrator
+from massivedatans_tpu_torch.parallel.sharded import require_mesh
 
 log = logging.getLogger("massivedatans_tpu_torch")
 
@@ -155,9 +156,11 @@ def run_musefit(cube_path: str, region_path: str, zlo: float, zhi: float,
     real-MUSE defaults; synthetic cubes pass ``[]``). ``checkpoint_dir``,
     ``checkpoint_every``, ``max_chunks`` and ``dispatch_target_s`` are the
     integrator's (``multi_nested_integrator``); an interrupted fit writes
-    its partial result, as the JAX package does. ``mesh`` is not ported
-    yet and raises."""
-    reject_unported(mesh)
+    its partial result, as the JAX package does. ``mesh``: a
+    ``DeviceMesh`` (``parallel.make_mesh``), in every one of its ranks;
+    rank 0 writes the output."""
+    if mesh is not None:
+        require_mesh(mesh)
     cube = load_muse_cube(cube_path, region_path, maxdata=maxdata,
                           bad_windows=bad_windows)
     cfg = RunConfig.from_env(
@@ -168,8 +171,11 @@ def run_musefit(cube_path: str, region_path: str, zlo: float, zhi: float,
         cube, template_files, zlo, zhi, model=model, cfg=cfg, device=device,
         ages=np.loadtxt(ages_file) if ages_file else None, progress=progress,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
-        max_chunks=max_chunks, dispatch_target_s=dispatch_target_s)
+        max_chunks=max_chunks, dispatch_target_s=dispatch_target_s,
+        mesh=mesh)
 
+    if result is None:  # a rank of the mesh other than 0
+        return result, problem, cube
     if out_prefix is None:
         suffix = "_zsol_" if model == "ZSOL" else "_full_"
         out_prefix = f"{cube_path}{suffix}.out_{problem.ndata}"

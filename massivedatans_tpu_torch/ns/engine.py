@@ -19,6 +19,16 @@ loops. Their round counters are host integers, so the refocus and
 column-round decisions read nothing from the device; the loop conditions
 read one flag per fill round and the rebuild cadence one flag per
 iteration. Random draws come from an explicit ``torch.Generator``.
+
+Under a dataset mesh (``parallel/sharded.py``) each rank holds a block of
+the datasets and passes its data-axis process ``group`` (and, with the
+spectral axis sharded, its ``model_group``): every reduction over the
+datasets that feeds host control flow or replicated state (the fill and
+chunk loop conditions, the rebuild cadence, the strategy and pile votes,
+the member set, the phantom candidates, the iteration counter) is taken
+over the group, as the JAX package's ``axis_name`` paths do. Every random
+draw has a shape that does not depend on the datasets, so the ranks'
+generators stay in step. ``group=None`` is the single-device path.
 """
 
 from __future__ import annotations
@@ -32,6 +42,13 @@ from massivedatans_tpu_torch.models.base import Problem
 from massivedatans_tpu_torch.ns import shelves as shelves_lib
 from massivedatans_tpu_torch.ns.region import Region, ball_offsets, uniform_choice
 from massivedatans_tpu_torch.ns.shelves import Shelves
+from massivedatans_tpu_torch.parallel.sharded import (
+    all_gather_rows,
+    axis_size,
+    global_any,
+    global_max,
+    global_or_rows,
+)
 
 _NEG_INF = -torch.inf
 _I32 = torch.int32
@@ -106,13 +123,20 @@ def _safe_logaddexp_update(logZ, H, wi, Li):
     return logZnew, t1 + t2 - logZnew
 
 
-def _dedup_random(flat, capacity: int, generator):
+def draw_hash_multiplier(generator, device):
+    """The random odd multiplier ``a`` of ``_dedup_random``'s hash."""
+    return 2 * torch.randint(0, 1 << 31, (), generator=generator,
+                             device=device) + 1
+
+
+def _dedup_random(flat, capacity: int, a):
     """Compact the unique non-negative entries of an int vector.
 
     When more than ``capacity`` unique values exist, the kept subset is a
     uniform random subsample (the values are ordered by a random bijective
-    hash, ``a * (v + 1) mod 2^32`` with a random odd ``a``, and the first
-    ``capacity`` are kept): a random subsample of live points plus its
+    hash, ``a * (v + 1) mod 2^32`` with the random odd ``a`` of
+    ``draw_hash_multiplier``, and the first ``capacity`` are kept): a
+    random subsample of live points plus its
     bootstrapped cover radius is still a valid RadFriends region, whereas
     a deterministic subset can miss whole modes. Otherwise the output is
     every unique value in ascending order, independent of the hash.
@@ -123,8 +147,6 @@ def _dedup_random(flat, capacity: int, generator):
     Returns ``(members_idx[capacity], member_mask[capacity], overflowed)``.
     """
     device = flat.device
-    a = 2 * torch.randint(0, 1 << 31, (), generator=generator,
-                          device=device) + 1
     valid = flat >= 0
     v = flat.to(torch.int64)
     h = torch.where(valid, (a * (v + 1)) & 0xFFFFFFFF, 1 << 32)
@@ -146,20 +168,37 @@ def _dedup_random(flat, capacity: int, generator):
     return members, member_mask, (n_unique > capacity).to(_I32)
 
 
-def unique_members(live_idx, col_mask, capacity: int, generator,
+def unique_members(live_idx, col_mask, capacity: int, a, group=None,
                    extra_idx=None):
     """Compacted unique pile indices over the selected dataset columns
     (replaces ``get_unique_pointsp``, multi_nested_sampler.py:130-132).
-    ``extra_idx``: more pile rows (phantoms) to include; -1 slots ignored."""
+    ``a`` is the hash multiplier (``draw_hash_multiplier``); ``extra_idx``:
+    more pile rows (phantoms) to include; -1 slots ignored.
+
+    Under a dataset mesh (``group``) each rank's kept set is all-gathered
+    (pile indices are global, the pile being replicated) and deduplicated
+    again with the same ``a``. A rank keeps the ``capacity`` smallest
+    hashes of its own values, so the union holds the ``capacity`` smallest
+    of all values: the member set is the single-device one bit for bit,
+    overflow or not (the JAX package draws a second key for the gathered
+    pass instead). Overflow is the max over ranks of the local flag or the
+    gathered pass's flag.
+    """
     flat = torch.where(col_mask[None, :], live_idx, -1).reshape(-1)
     if extra_idx is not None:
         flat = torch.cat([flat, extra_idx])
-    return _dedup_random(flat, capacity, generator)
+    members, mask, overflow = _dedup_random(flat, capacity, a)
+    if group is None:
+        return members, mask, overflow
+    gathered = all_gather_rows(torch.where(mask, members, -1), group)
+    members, mask, g_overflow = _dedup_random(gathered, capacity, a)
+    return members, mask, torch.maximum(global_max(overflow, group),
+                                        g_overflow)
 
 
 def _build_geometry_from(strategy, state: EngineState, col_mask, generator,
                          cfg: RunConfig, member_capacity: int,
-                         carry_cap: bool = True):
+                         carry_cap: bool = True, group=None):
     """Build the strategy geometry from the selected datasets' live points.
 
     ``carry_cap``: pass the previous global build's force-shrink cap. A
@@ -167,8 +206,9 @@ def _build_geometry_from(strategy, state: EngineState, col_mask, generator,
     92-109) and does not; the cap is also dropped when the member set
     overflowed capacity, so the subsample's radius may grow.
     """
+    a = draw_hash_multiplier(generator, state.live_idx.device)
     members_idx, member_mask, overflow = unique_members(
-        state.live_idx, col_mask, member_capacity, generator)
+        state.live_idx, col_mask, member_capacity, a, group)
     members_u = state.pile_u[members_idx]
     if carry_cap:
         # build_region disables the cap when prev_radius == 0
@@ -313,7 +353,8 @@ def _column_proposals(pile_u, live_idx, empty, generator, B: int,
 
 def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
                   sstate, cfg: RunConfig, member_capacity: int, generator,
-                  budget_left: int | None = None, live_bot=None):
+                  budget_left: int | None = None, live_bot=None, group=None,
+                  model_group=None):
     """Propose/evaluate/scatter until every running dataset has a queued
     candidate (reference fill loop, multi_nested_sampler.py:365-489).
 
@@ -323,6 +364,11 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
     across a chunk; the loop also exits when it reaches zero, leaving some
     shelves empty (those datasets skip this iteration). Returns
     ``(state, budget_left)``.
+
+    Column proposals draw a ``[D]`` tiebreak and read the empty datasets
+    of this rank only, so they run only where the data axis has one rank
+    (the JAX package turns them off under any mesh; at one rank they keep
+    the single-device trajectory).
     """
     S = cfg.shelf_capacity
     # nsuperset_draws counts single candidates (multi_nested_sampler.py:373);
@@ -332,7 +378,8 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
     if live_bot is None:
         live_bot = shelves_lib.live_bottom(state.live_L, S)
     budget = 2 ** 30 if budget_left is None else budget_left
-    col_capable = cfg.use_column_focus and isinstance(geom, Region)
+    col_capable = (cfg.use_column_focus and axis_size(group) == 1
+                   and isinstance(geom, Region))
     n_groups = max(state.n_groups, 1)
     D = state.live_L.shape[1]
     P = state.pile_capacity
@@ -345,7 +392,7 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
     rnd = 0
 
     def need_more(sh):
-        return bool(torch.any(state.running & (sh.count == 0)))
+        return bool(global_any(state.running & (sh.count == 0), group))
 
     more = need_more(shelves)
     while rnd < cfg.max_fill_rounds and budget > 0 and more:
@@ -358,10 +405,11 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
             grp_mask = empty & (state.group_id == (since // focus_every) % n_groups)
             col_mask = empty
             if n_groups <= cfg.column_focus_groups:
-                col_mask = torch.where(grp_mask.any(), grp_mask, empty)
+                col_mask = torch.where(global_any(grp_mask, group), grp_mask,
+                                       empty)
             geom, ovf = _build_geometry_from(
                 strategy, state, col_mask, generator,
-                cfg, member_capacity, carry_cap=False)
+                cfg, member_capacity, carry_cap=False, group=group)
             overflow = overflow + ovf
 
         # column rounds: alternate with region rounds once the datasets
@@ -383,7 +431,7 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
             cand_u, valid, sstate = strategy.propose(geom, sstate, generator)
             src_col = None
         cand_x = problem.transform_batch(cand_u)
-        L = problem.loglike(cand_x)                         # [B, D]
+        L = problem.loglike_sharded(cand_x, model_group)    # [B, D]
 
         thresh = shelves_lib.insertion_thresholds(live_bot, shelves)
         space = shelves.count < S
@@ -394,13 +442,16 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
             acc = acc & (src_col[:, None] == cols_all)
 
         # strategy feedback: e.g. slice chains advance when the candidate
-        # beats any running dataset's constraint (whitenedmcmc.py:305)
-        chain_accept = above.any(dim=1)
+        # beats any running dataset's constraint (whitenedmcmc.py:305); and
+        # the pile append for candidates accepted by any dataset. Under a
+        # mesh both are votes of every rank, taken in one reduction
+        chain_accept, newpt = above.any(dim=1), acc.any(dim=1)
+        if group is not None:
+            chain_accept, newpt = global_or_rows(
+                torch.stack([chain_accept, newpt]), group)
         sstate = strategy.observe(sstate, cand_u, chain_accept)
         sstate = strategy.refresh(geom, sstate, generator, chain_accept)
 
-        # pile append for candidates accepted by any dataset
-        newpt = torch.any(acc, dim=1)
         newpt_i = newpt.to(_I32)
         slots = pile_size + torch.cumsum(newpt_i, dim=0, dtype=_I32) - newpt_i
         can_store = newpt & (slots < P)
@@ -428,12 +479,15 @@ def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
 
 def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
                  member_capacity: int, generator, strategy=None,
-                 geom_carry=None, budget_left: int | None = None):
+                 geom_carry=None, budget_left: int | None = None, group=None,
+                 model_group=None, any_running=None):
     """One joint NS iteration: clean shelves, fill, advance every dataset,
     update the streaming evidence (reference __next__ + integrator body).
 
     ``geom_carry``: the previous iteration's geometry, reused unless the
-    rebuild cadence fires. Returns ``((state, geom, budget_left), dead)``.
+    rebuild cadence fires. ``any_running``: ``global_any(state.running,
+    group)`` where the caller has it already (the chunk loop's
+    condition). Returns ``((state, geom, budget_left), dead)``.
     """
     if strategy is None:
         from massivedatans_tpu_torch.ns.strategies import make_strategy
@@ -450,6 +504,11 @@ def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
     hit_raw = state.live_L == Lmins[None, :]
     worst_hit = hit_raw & (torch.cumsum(hit_raw.to(_I32), dim=0) == 1)
     state = state.replace(shelves=shelves_lib.clean(state.shelves, Lmins))
+    # a dataset running anywhere on the mesh; ``running`` changes only in
+    # device_termination at the end, so this serves the rebuild cadence
+    # and the iteration counter alike
+    if any_running is None:
+        any_running = global_any(state.running, group)
 
     if geom_carry is None or (
         cfg.region_rebuild_draws <= 0 and cfg.region_rebuild_every <= 1
@@ -459,13 +518,14 @@ def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
         # reference cadence: rebuild after region_rebuild_draws
         # likelihood-evaluated candidates (sample.py:134)
         do = bool((state.ndraws - state.draws_at_rebuild
-                   >= cfg.region_rebuild_draws) & state.running.any())
+                   >= cfg.region_rebuild_draws) & any_running)
     else:
         do = bool(((state.iteration % cfg.region_rebuild_every) == 0)
-                  & state.running.any())
+                  & any_running)
     if do:
         geom, overflow = _build_geometry_from(
-            strategy, state, state.running, generator, cfg, member_capacity)
+            strategy, state, state.running, generator, cfg, member_capacity,
+            group=group)
         state = state.replace(
             draws_at_rebuild=state.ndraws,
             member_overflow=state.member_overflow + overflow)
@@ -479,7 +539,8 @@ def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
 
     state, budget_left = _fill_shelves(
         problem, state, strategy, geom, sstate, cfg, member_capacity,
-        generator, budget_left, live_bot=live_bot)
+        generator, budget_left, live_bot=live_bot, group=group,
+        model_group=model_group)
     # a drained budget means the fill was truncated, not that the contour is
     # unfillable: empty shelves then do not count toward stall termination
     budget_out = budget_left <= 0
@@ -496,15 +557,19 @@ def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
     live_L = torch.where(upd, head_L[None, :], state.live_L)
 
     # --- phantom-point memory (friends.py keep_phantom_points) ---
+    # under a mesh the dead set is all-gathered first (rank order is
+    # dataset order), which keeps the replicated buffer identical
     Q = state.phantom_idx.shape[0]
     if Q > 0:
-        all_L = torch.cat([state.phantom_L, torch.where(adv, dead_L, _NEG_INF)])
-        all_i = torch.cat([state.phantom_idx, torch.where(adv, dead_p, -1)])
+        cand_L = all_gather_rows(torch.where(adv, dead_L, _NEG_INF), group)
+        cand_i = all_gather_rows(torch.where(adv, dead_p, -1), group)
+        all_L = torch.cat([state.phantom_L, cand_L])
+        all_i = torch.cat([state.phantom_idx, cand_i])
         top_L, sel = torch.topk(all_L, Q)
         state = state.replace(phantom_idx=all_i[sel], phantom_L=top_L)
 
     # --- streaming evidence update (multi_nested_integrator.py:105-161) ---
-    active = state.running.any()
+    active = any_running
     logwidth = torch.where(
         adv, ledger_constant(K, device) + state.logVolremaining, state.logwidth)
     wi = logwidth + dead_L
@@ -606,11 +671,13 @@ def device_termination(state: EngineState, cfg: RunConfig, nlive: int):
 
 def run_chunk(problem: Problem, state: EngineState, cfg: RunConfig,
               member_capacity: int, n_iters: int, generator, strategy=None,
-              fill_budget: int | None = None):
+              fill_budget: int | None = None, group=None, model_group=None):
     """Run up to ``n_iters`` NS iterations, stopping early once every
     dataset has terminated (``engine.run_chunk_inner`` of the JAX package,
     as a host loop). Returns ``(state, dead, rows)`` with the first ``rows``
-    rows of ``dead`` written.
+    rows of ``dead`` written. Under a mesh (``group``: the data axis,
+    ``model_group``: the model axis) ``problem`` and ``state`` are this
+    rank's shards and ``rows`` is the same on every rank.
     """
     require_run_config(cfg)
     if strategy is None:
@@ -618,7 +685,8 @@ def run_chunk(problem: Problem, state: EngineState, cfg: RunConfig,
 
         strategy = make_strategy(cfg)
     geom, overflow0 = _build_geometry_from(
-        strategy, state, state.running, generator, cfg, member_capacity)
+        strategy, state, state.running, generator, cfg, member_capacity,
+        group=group)
     state = state.replace(
         member_overflow=state.member_overflow + overflow0,
         draws_at_rebuild=state.ndraws,  # chunk-start build resets the cadence
@@ -634,10 +702,14 @@ def run_chunk(problem: Problem, state: EngineState, cfg: RunConfig,
         running=torch.zeros((n_iters, D), dtype=torch.bool, device=device),
     )
     rows = 0
-    while rows < n_iters and bool(state.running.any()):
+    while rows < n_iters:
+        any_running = global_any(state.running, group)
+        if not bool(any_running):
+            break
         (state, geom, budget), row = ns_iteration(
             problem, state, cfg, member_capacity, generator, strategy, geom,
-            budget)
+            budget, group=group, model_group=model_group,
+            any_running=any_running)
         dead.idx[rows] = row.idx
         dead.L[rows] = row.L
         dead.logwidth[rows] = row.logwidth

@@ -1,4 +1,4 @@
-"""Host-side nested-sampling loop, single device.
+"""Host-side nested-sampling loop, on one device or over a mesh.
 
 Counterpart of ``massivedatans_tpu/ns/integrator.py`` (reference
 ``multi_nested_integrator.py:80-175``). The per-iteration work (fill,
@@ -14,6 +14,15 @@ per chunk. The host then
   live points are frozen by the running mask),
 - and, on request, checkpoints at chunk boundaries (``io/checkpoint.py``),
   escalates the eval batch and adapts the per-chunk fill budget.
+
+Under a device mesh (``parallel/sharded.py``) every rank runs this loop on
+its block of datasets. The host work that spans datasets is global: the
+loop condition reads every rank's running mask, the pile compaction keeps
+the union of every rank's referenced rows, and the group labels come from
+the all-gathered live points, so every rank holds the same labels. The
+dead-point ledger and the tails stay per rank until the end, where the
+result is gathered to rank 0 in dataset order; a checkpoint holds the
+state gathered to rank 0, written by it in the single-device format.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from massivedatans_tpu_torch.config import RunConfig, require_run_config
 from massivedatans_tpu_torch.io import checkpoint as ckpt
@@ -33,6 +43,7 @@ from massivedatans_tpu_torch.ns import engine as engine_lib
 from massivedatans_tpu_torch.ns import subsets as subsets_lib
 from massivedatans_tpu_torch.ns.engine import EngineState
 from massivedatans_tpu_torch.ns.strategies import make_strategy
+from massivedatans_tpu_torch.parallel import sharded
 from massivedatans_tpu_torch.utils.progress import ProgressReporter
 
 log = logging.getLogger("massivedatans_tpu_torch")
@@ -71,17 +82,25 @@ def fetch(tensors) -> list:
     return out
 
 
-def compact_pile(state: EngineState) -> EngineState:
+def compact_pile(state: EngineState, group=None) -> EngineState:
     """Drop pile entries no longer referenced by live points, shelves or
-    phantoms; dead points have already been streamed out."""
+    phantoms; dead points have already been streamed out. Under a mesh
+    (``group``: the data axis) a row is kept while any rank references
+    it, so every rank's pile stays the same."""
     live_idx, shelf_idx, phantom_idx = fetch(
         [state.live_idx, state.shelves.idx, state.phantom_idx])
     refs = np.unique(np.concatenate([
         live_idx.ravel(), shelf_idx[shelf_idx >= 0],
         phantom_idx[phantom_idx >= 0],
     ]))
-    n = len(refs)
     device = state.pile_u.device
+    if group is not None:
+        used = np.zeros(state.pile_capacity, bool)
+        used[refs] = True
+        used = sharded.global_or_rows(torch.as_tensor(used, device=device),
+                                      group)
+        refs = np.flatnonzero(used.cpu().numpy())
+    n = len(refs)
     refs_dev = torch.as_tensor(refs, dtype=torch.int64, device=device)
     new_u = torch.zeros_like(state.pile_u)
     new_x = torch.zeros_like(state.pile_x)
@@ -104,13 +123,15 @@ def compact_pile(state: EngineState) -> EngineState:
     )
 
 
-def reject_unported(mesh=None) -> None:
-    """Raise for the one option of the JAX integrator that this port does
-    not carry yet: the multi-device mesh (ROADMAP.md queue 1, item 15)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the multi-device mesh is not ported to massivedatans_tpu_torch "
-            "yet (ROADMAP.md queue 1, item 15)")
+def gather_datasets(arr: np.ndarray, group, device, axis: int = 0):
+    """A host array of this rank's datasets (on ``axis``) joined with
+    every other rank's, in dataset order, on the first rank of ``group``;
+    None on the others; itself without a mesh."""
+    if group is None:
+        return arr
+    t = torch.as_tensor(np.ascontiguousarray(arr), device=device)
+    out = sharded.gather_rows(t, group, dim=axis)
+    return None if out is None else out.cpu().numpy()
 
 
 def escalated_config(cfg: RunConfig) -> RunConfig:
@@ -144,7 +165,15 @@ def multi_nested_integrator(
 
     ``generator`` is a ``torch.Generator`` on ``device``; by default one is
     made there and seeded from ``cfg.seed``. ``problem`` is moved to
-    ``device``. ``mesh`` (several devices) is not ported yet and raises.
+    ``device``.
+
+    ``mesh``: a ``torch.distributed`` ``DeviceMesh`` (``parallel.make_mesh``)
+    in each of its ranks (``parallel.spawn_ranks``), each with the whole
+    ``problem`` and a generator seeded alike. The state is made for all
+    datasets and then sharded, so every rank walks the single-device
+    trajectory; ``problem.ndata`` must divide by the data axis. Rank 0
+    returns the whole result, every other rank None. Escalation and the adaptive budget stay off
+    under a mesh, as in the JAX package.
 
     ``checkpoint_dir``: save the state, the generator and the dead-point
     stream there (``io/checkpoint.py``) every ``checkpoint_every`` chunks,
@@ -177,7 +206,16 @@ def multi_nested_integrator(
     ).items() if v is not None}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    reject_unported(mesh)
+    if mesh is not None:
+        sharded.require_mesh(mesh)
+        group, d_rank, d_size = sharded.data_axis(mesh)
+        model_group, m_rank, _ = sharded.model_axis(mesh)
+        writer = dist.get_rank() == 0
+        # the data axis that holds rank 0 gathers the result to it
+        collects = m_rank == 0
+    else:
+        group = model_group = None
+        d_rank, d_size, writer, collects = 0, 1, True, True
     if max_chunks is not None and checkpoint_dir is None:
         raise ValueError("max_chunks (graceful preemption) requires "
                          "checkpoint_dir to persist the partial run")
@@ -187,13 +225,14 @@ def multi_nested_integrator(
     problem = problem.to(device)
 
     D, K, ndim = problem.ndata, cfg.nlive_points, problem.ndim
+    block = sharded.dataset_block(D, d_rank, d_size)  # this rank's datasets
     member_capacity = cfg.resolve_member_capacity(D)
     runs = [(cfg, make_strategy(cfg))]
-    if cfg.eval_batch_max > cfg.eval_batch:
+    if cfg.eval_batch_max > cfg.eval_batch and mesh is None:
         cfg_big = escalated_config(cfg)
         runs.append((cfg_big, make_strategy(cfg_big)))
     big_active, big_batch_chunks = False, 0
-    adaptive = dispatch_target_s is not None
+    adaptive = dispatch_target_s is not None and mesh is None
     budget_ceil = cfg.chunk_fill_budget or 65536
     budget_floor = min(256, budget_ceil)
     budget = max(budget_floor, min(budget_ceil, 512))
@@ -221,47 +260,54 @@ def multi_nested_integrator(
             dead_x.append(x)
         pending_idx.clear()
 
-    running = np.ones(D, bool)
+    running_all = np.ones(D, bool)  # every rank's datasets
     chunk_index = 0
     if checkpoint_dir is not None and ckpt.has_checkpoint(checkpoint_dir):
         log.info("resuming from checkpoint %s", checkpoint_dir)
         state = ckpt.load_state(checkpoint_dir, state, generator)
-        running = ckpt.load_host(checkpoint_dir)["running"]
+        running_all = ckpt.load_host(checkpoint_dir)["running"]
         chunk_index = int(ckpt.load_meta(checkpoint_dir)["chunk_index"])
         for c in ckpt.load_chunks(checkpoint_dir)[:chunk_index]:
-            dead_u.append(c["u"])
-            dead_x.append(c["x"])
-            dead_L.append(c["L"])
-            dead_w.append(c["w"])
-            dead_mask.append(c["mask"])
+            dead_u.append(c["u"][:, block])
+            dead_x.append(c["x"][:, block])
+            dead_L.append(c["L"][:, block])
+            dead_w.append(c["w"][:, block])
+            dead_mask.append(c["mask"][:, block])
+    if mesh is not None:
+        problem = sharded.shard_problem(problem, mesh)
+        state = sharded.shard_state(state, mesh)
+    running = running_all[block]
     saved_chunks = chunk_index
     timing["init_s"] = time.time() - t0
 
-    reporter = ProgressReporter(enabled=progress, ndata=D)
+    reporter = ProgressReporter(enabled=progress and writer, ndata=D)
     # the [K, D] live_idx feeds the advisory group labels; at large K*D it
     # is refreshed on a cadence (config.group_refresh_chunks)
     group_every = cfg.group_refresh_chunks or (1 if K * D <= 1 << 20 else 4)
     interrupted = False
-    while running.any():
+    while running_all.any():
         t_c0 = time.time()
         run_cfg, strategy = runs[big_active]
         big_batch_chunks += big_active
         state, dead, rows = engine_lib.run_chunk(
             problem, state, run_cfg, member_capacity, cfg.chunk_iters,
-            generator, strategy, fill_budget=budget if adaptive else None)
+            generator, strategy, fill_budget=budget if adaptive else None,
+            group=group, model_group=model_group)
         t_c1 = time.time()
         with_groups = cfg.use_groups and D > 1 and chunk_index % group_every == 0
         parts = fetch([
             dead.idx[:rows], dead.L[:rows], dead.logwidth[:rows],
-            dead.running[:rows], state.running, state.iteration,
+            dead.running[:rows],
+            sharded.all_gather_rows(state.running, group), state.iteration,
             state.ndraws, state.pile_size, state.stall_count,
             state.fill_rounds, state.logZ, state.rem_logZ,
-        ] + ([state.live_idx] if with_groups else []))
+        ] + ([sharded.all_gather_rows(state.live_idx, group, dim=1)]
+             if with_groups else []))
         t_c2 = time.time()
         rep = dict(zip(
-            ("idx", "L", "logwidth", "rows_running", "running", "iteration",
-             "ndraws", "pile_size", "stall_count", "fill_rounds", "logZ",
-             "rem_logZ", "live_idx"), parts))
+            ("idx", "L", "logwidth", "rows_running", "running_all",
+             "iteration", "ndraws", "pile_size", "stall_count",
+             "fill_rounds", "logZ", "rem_logZ", "live_idx"), parts))
         pending_idx.append(rep["idx"])
         dead_L.append(rep["L"])
         dead_w.append(np.where(rep["rows_running"], rep["logwidth"],
@@ -288,8 +334,9 @@ def multi_nested_integrator(
                     log.info("fill rounds/iter %.2f: back to eval_batch %d",
                              rpi, cfg.eval_batch)
         prev_rounds = rounds
-        newly_done = running & ~rep["running"]
-        running = rep["running"].copy()
+        newly_done = running & ~rep["running_all"][block]
+        running_all = rep["running_all"].copy()
+        running = running_all[block]
         stalled_out = newly_done & (
             rep["stall_count"] > engine_lib.resolve_stall_limit(cfg))
         if stalled_out.any():
@@ -298,43 +345,52 @@ def multi_nested_integrator(
                         int(rep["stall_count"][stalled_out].max()))
         reporter.update(
             it=int(rep["iteration"]), ndraws=int(rep["ndraws"]),
-            running=int(running.sum()),
+            running=int(running_all.sum()),
             logZ0=float(np.logaddexp(rep["logZ"][0], rep["rem_logZ"][0])))
         ps = int(rep["pile_size"])
         if ps >= pile_cap:
             log.warning("point pile hit capacity (%d); accepted candidates "
                         "were dropped — raise cfg.pile_capacity", pile_cap)
-        if running.any() and ps > 0.85 * pile_cap:
+        if running_all.any() and ps > 0.85 * pile_cap:
             resolve_pending(state, ps)  # indices reference the old pile
-            state = compact_pile(state)
+            state = compact_pile(state, group)
             ps = int(state.pile_size)
-        if running.any() and "live_idx" in rep:
+        if running_all.any() and "live_idx" in rep:
             labels, n_groups = subsets_lib.component_labels(
-                rep["live_idx"], selected=running, nlive_points=K)
+                rep["live_idx"], selected=running_all, nlive_points=K)
             state = state.replace(
-                group_id=torch.as_tensor(np.maximum(labels, 0),
+                group_id=torch.as_tensor(np.maximum(labels[block], 0),
                                          dtype=torch.int32, device=device),
                 n_groups=max(int(n_groups), 1))
         t_c3 = time.time()
         hit_max_chunks = (max_chunks is not None and chunk_index >= max_chunks
-                          and running.any())
+                          and running_all.any())
         if checkpoint_dir is not None and (
-                chunk_index % checkpoint_every == 0 or not running.any()
+                chunk_index % checkpoint_every == 0 or not running_all.any()
                 or hit_max_chunks):
             # the state the next chunk starts from; chunk files hold
-            # coordinates, so the pending indices are resolved first
+            # coordinates, so the pending indices are resolved first. Under
+            # a mesh the data axis of rank 0 gathers to it and it writes
             resolve_pending(state, ps)
             while saved_chunks < chunk_index:
-                ckpt.save_chunk(checkpoint_dir, saved_chunks, dict(
-                    u=dead_u[saved_chunks], x=dead_x[saved_chunks],
-                    L=dead_L[saved_chunks], w=dead_w[saved_chunks],
-                    mask=dead_mask[saved_chunks]))
+                if collects:
+                    chunk = {k: gather_datasets(v[saved_chunks], group,
+                                                device, 1)
+                             for k, v in dict(u=dead_u, x=dead_x, L=dead_L,
+                                              w=dead_w,
+                                              mask=dead_mask).items()}
+                if writer:
+                    ckpt.save_chunk(checkpoint_dir, saved_chunks, chunk)
                 saved_chunks += 1
-            ckpt.save_state(
-                checkpoint_dir, state, generator,
-                host_ctx=dict(running=running),
-                meta=dict(chunk_index=chunk_index, ndata=D, nlive=K,
-                          iteration=int(rep["iteration"])))
+            full = state
+            if mesh is not None and collects:
+                full = sharded.gather_state(state, mesh)
+            if writer:
+                ckpt.save_state(
+                    checkpoint_dir, full, generator,
+                    host_ctx=dict(running=running_all),
+                    meta=dict(chunk_index=chunk_index, ndata=D, nlive=K,
+                              iteration=int(rep["iteration"])))
         timing["chunk_s"] += t_c1 - t_c0
         timing["fetch_s"] += t_c2 - t_c1
         timing["groups_s"] += t_c3 - t_c2
@@ -358,13 +414,23 @@ def multi_nested_integrator(
     timing["tail_s"] = time.time() - t_tail0
 
     niter, ndraws = int(niter), int(ndraws)
-    final_H = final_H.astype(np.float64)
     u = np.concatenate(dead_u + [pile_u[ti]], axis=0)
     x = np.concatenate(dead_x + [pile_x[ti]], axis=0)
     L = np.concatenate(dead_L + [tL], axis=0)
-    tails_w = np.broadcast_to(last_logwidth[None, :], (K, D))
+    tails_w = np.broadcast_to(last_logwidth[None, :], tL.shape)
     w = np.concatenate(dead_w + [tails_w.astype(np.float32)], axis=0)
-    mask = np.concatenate(dead_mask + [np.ones((K, D), bool)], axis=0)
+    mask = np.concatenate(dead_mask + [np.ones(tL.shape, bool)], axis=0)
+    if mesh is not None:  # every rank's datasets, in dataset order
+        if not collects:
+            return None
+        u, x, L, w, mask = (gather_datasets(a, group, device, 1)
+                            for a in (u, x, L, w, mask))
+        (run_logZ, final_H, rem_logZ, rem_logZerr, stall_count) = (
+            gather_datasets(a, group, device) for a in (
+                run_logZ, final_H, rem_logZ, rem_logZerr, stall_count))
+        if not writer:
+            return None
+    final_H = final_H.astype(np.float64)
 
     logZ = np.logaddexp(run_logZ.astype(np.float64),
                         rem_logZ.astype(np.float64))

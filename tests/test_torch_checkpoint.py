@@ -160,6 +160,34 @@ def test_stateful_strategies_resume_bitwise(tmp_path, constrainer):
     _assert_same(_run(_problem(11), cfg, checkpoint_dir=d), full)
 
 
+def test_preempt_resume_under_mesh(tmp_path):
+    """tests/test_checkpoint_midrun.py::test_preempt_resume_under_mesh: a
+    run on a 2-rank dataset mesh, preempted after 3 chunks and resumed, is
+    the uninterrupted sharded run bit for bit (rank 0 writes the gathered
+    state; every rank loads and re-shards it)."""
+    from massivedatans_tpu_torch.parallel.launch import run_sharded
+
+    def sharded(**kw):
+        return run_sharded(_problem(11), dataclasses.replace(MIDRUN, seed=4),
+                           2, "gloo", "cpu", timeout_s=120, **kw)
+
+    full = sharded()
+    ck = str(tmp_path / "ckm")
+    partial = sharded(checkpoint_dir=ck, checkpoint_every=1, max_chunks=3)
+    assert partial.stats["interrupted"]
+    assert ckpt.load_meta(ck)["ndata"] == 6  # the whole state, gathered
+    resumed = sharded(checkpoint_dir=ck, checkpoint_every=1)
+    np.testing.assert_array_equal(resumed.logZ, full.logZ)
+    np.testing.assert_array_equal(resumed.L, full.L)
+    assert resumed.niterations == full.niterations
+    # the sharded run walks the single-device trajectory (no column
+    # proposals on either side), to f32 rounding of the likelihood
+    single = _run(_problem(11), dataclasses.replace(MIDRUN,
+                                                    use_column_focus=False))
+    assert full.niterations == single.niterations
+    np.testing.assert_allclose(full.logZ, single.logZ, rtol=1e-5, atol=1e-5)
+
+
 def test_max_samples_checkpoint_resumes_to_the_same_result(tmp_path):
     """The JAX package's round-1 bar: a run stopped by max_samples
     terminated every dataset, so its resume is the already-complete

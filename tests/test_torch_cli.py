@@ -70,10 +70,37 @@ def test_default_cuda_device_without_card_exits(tmp_path, monkeypatch):
     assert not any(p.endswith(".out8.hdf5") for p in os.listdir("."))
 
 
-def test_unported_subcommands_raise(tmp_path):
-    """Only the multi-device options (ROADMAP item 15) are refused."""
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(["fit", "d.hdf5", "2", "--device", "cpu", "--devices", "2"])
+def test_unported_subcommands_raise(tmp_path, monkeypatch):
+    """The multi-device options refuse what they cannot serve, as the JAX
+    CLI does: more ranks than exist, and datasets that do not divide
+    over the data axis."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit, match="are available"):
+        cli.main(["fit", "d.hdf5", "2", "--device", "cpu", "--devices",
+                  str((os.cpu_count() or 1) + 1)])
+    cli.main(["gen", "horns", "16"])
+    with pytest.raises(SystemExit, match="not divisible by the data axis"):
+        cli.main(["fit", "data_widths_16.hdf5", "3", "--device", "cpu",
+                  "--devices", "2"])
+    assert not any(p.endswith(".out8.hdf5") for p in os.listdir("."))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--devices", "2"],
+    ["--devices", "2", "--model-parallel", "2"],
+])
+def test_fit_on_a_mesh_writes_reference_schema(tmp_path, monkeypatch, flags):
+    """``fit --devices N [--model-parallel M]`` on the CPU: N*M gloo ranks,
+    rank 0's result written in the single-device schema."""
+    monkeypatch.chdir(tmp_path)
+    cli.main(["gen", "horns", "16"])
+    cli.main(["fit", "data_widths_16.hdf5", "4", "--nlive", "40",
+              "--device", "cpu", "--quiet", *flags])
+    with h5py.File("data_widths_16.hdf5_MLFRIENDS_nlive40_4.out8.hdf5") as f:
+        assert set(f.keys()) == SCHEMA
+        assert f["u"].shape[1:] == (4, 3) and f["logZ"].shape == (4,)
+        assert np.isfinite(f["logZ"][()]).all()
+        assert (f["logZerr"][()] > 0).all()
 
 
 def test_gen_fit_check_refine_plot_roundtrip(tmp_path, monkeypatch, capsys):
@@ -192,14 +219,29 @@ def test_musefit_roundtrip(tiny_cube, capsys):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--devices", "2"], "15"),
-    (["--model-parallel", "2"], "15"),
+    (["--devices"], "15"),
+    (["--model-parallel"], "15"),
 ])
 def test_musefit_unported_options_raise(tiny_cube, flags, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    """The options of ROADMAP item ``item`` refuse more ranks than exist."""
+    flags = flags + [str((os.cpu_count() or 1) + 1)]
+    with pytest.raises(SystemExit, match="are available"):
         cli.main(["musefit", "cube.fits", "sel.reg", "0", "0.5", *tiny_cube,
                   "--device", "cpu", *flags])
     assert not any(p.endswith(".hdf5") for p in os.listdir("."))
+
+
+def test_musefit_on_a_data_model_mesh_writes_reference_schema(tiny_cube):
+    """``musefit --devices 2 --model-parallel 2``: 4 gloo ranks, the
+    wavelength axis split in two; rank 0 writes."""
+    cli.main(["musefit", "cube.fits", "sel.reg", "0", "0.5", *tiny_cube,
+              "--device", "cpu", "--nlive", "30", "--max-samples", "80",
+              "--devices", "2", "--model-parallel", "2"])
+    with h5py.File("cube.fits_full_.out_6.hdf5") as f:
+        assert set(f.keys()) == SCHEMA | {"fiberids", "duration", "ndata"}
+        assert f["u"].shape[1:] == (6, 5) and f["logZ"].shape == (6,)
+        assert int(f["ndata"][()]) == 6 and len(f["fiberids"]) == 6
+        assert np.isfinite(f["logZ"][()]).all()
 
 
 def test_run_fit_in_fresh_process_imports_no_jax():

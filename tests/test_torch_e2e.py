@@ -147,10 +147,11 @@ def test_decoupled_datasets_with_column_rounds(monkeypatch, constrainer):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only the multi-device mesh is left unported; checkpointing,
-    eval-batch escalation and the adaptive fill budget run."""
+    """A mesh that is not a torch.distributed DeviceMesh is refused (the
+    mesh path: tests/test_torch_parallel.py); checkpointing, eval-batch
+    escalation and the adaptive fill budget run."""
     problem = make_analytic_gaussian_problem(np.full((2, 2), 0.5))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         multi_nested_integrator(problem, SMALL, device="cpu", mesh=object())
     cfg = dataclasses.replace(SMALL, max_samples=60,
                               eval_batch_max=4 * SMALL.eval_batch)

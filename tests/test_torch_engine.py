@@ -111,8 +111,9 @@ def test_unique_members_bitwise_without_overflow():
     K, D, cap = 40, 25, 512
     live_idx = rng.integers(0, 300, size=(K, D)).astype(np.int32)
     col_mask = rng.random(D) < 0.6
-    got = engine.unique_members(_t(live_idx), _t(col_mask), cap,
-                                torch.Generator().manual_seed(0))
+    got = engine.unique_members(
+        _t(live_idx), _t(col_mask), cap,
+        engine.draw_hash_multiplier(torch.Generator().manual_seed(0), "cpu"))
     want = jax_engine.unique_members(jnp.asarray(live_idx),
                                      jnp.asarray(col_mask), cap,
                                      jax.random.key(0))
@@ -131,7 +132,8 @@ def test_unique_members_overflow_keeps_random_subset():
     for seed in range(2):
         idx, mask, ovf = engine.unique_members(
             _t(live_idx), torch.ones(40, dtype=torch.bool), cap,
-            torch.Generator().manual_seed(seed))
+            engine.draw_hash_multiplier(torch.Generator().manual_seed(seed),
+                                        "cpu"))
         vals = idx.numpy()[mask.numpy()]
         assert int(ovf) == 1 and len(vals) == cap
         assert np.all(np.diff(vals) > 0) and set(vals.tolist()) <= universe

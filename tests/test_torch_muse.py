@@ -301,10 +301,10 @@ def test_run_musefit_logZ_matches_jax_and_empty_identity(small_fits):
 
 
 def test_run_musefit_unported_options_raise(tmp_path):
-    """Only the multi-device mesh is left unported (checkpointing and the
-    adaptive budget: tests/test_torch_checkpoint.py); it is refused before
-    the cube is read."""
-    with pytest.raises(NotImplementedError, match="item 15"):
+    """A mesh that is not a torch.distributed DeviceMesh is refused before
+    the cube is read (the mesh path: tests/test_torch_cli.py and
+    tests/test_torch_parallel.py)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_musefit("missing.fits", None, 0.0, 0.5, [], device="cpu",
                     mesh=object())
 

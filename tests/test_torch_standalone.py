@@ -92,6 +92,31 @@ def test_infer_and_postprocess_import_without_jax_or_matplotlib():
     assert proc.stdout.startswith("ok")
 
 
+def test_sharded_run_in_a_fresh_process_imports_no_jax():
+    """parallel/ (launcher, mesh, collectives) and a 2-rank gloo run of the
+    integrator import nothing of JAX or of the JAX package."""
+    code = (
+        "import sys, numpy as np\n"
+        "from massivedatans_tpu_torch.config import RunConfig\n"
+        "from massivedatans_tpu_torch.models.analytic import "
+        "make_analytic_gaussian_problem\n"
+        "from massivedatans_tpu_torch.parallel import run_sharded\n"
+        "p = make_analytic_gaussian_problem(np.full((2, 2), 0.5), sigma=0.1)\n"
+        "r = run_sharded(p, RunConfig(nlive_points=20, max_samples=40), 2, "
+        "'gloo', 'cpu', timeout_s=60)\n"
+        "assert r.logZ.shape == (2,) and np.isfinite(r.logZ).all()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def _sources():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
