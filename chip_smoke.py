@@ -61,9 +61,19 @@ Phases, each of which raises on failure:
    wrapper enqueues its kernel and nothing else (no zero-fill);
 4. reset the launch counters, run the horns fit, read the counters (each
    kernel must have launched, and ``count_within`` exactly once per region
-   proposal round), check the result's shapes, that logZ is finite, and
-   that >= 95 of the first 100 datasets lie within 3 logZerr + 0.5 of the
-   quadrature oracle ``quad_logZ.json``;
+   proposal round, replayed or eager), check the result's shapes, that
+   logZ is finite, and that >= 95 of the first 100 datasets lie within
+   3 logZerr + 0.5 of the quadrature oracle ``quad_logZ.json``. The fit
+   runs on the captured path (CUDA graph replays, ``stats["chunk_path"]``
+   "graph"); its first ``HORNS_EAGER_CHUNKS`` chunks then run on both
+   paths, eagerly with ``eager=True`` (the same steps dispatched one operation
+   at a time) from the same seed, and logZ, logZerr, L, iterations, fill
+   rounds, evaluations and both kernels' launches must be equal bit for
+   bit (``compare_paths``). The fit runs again at ``pipeline_lookahead``
+   0 (phase 4's is the default, 1) and holds the same bar, and a slice of
+   ``PATH_PROFILE_SAMPLES`` iterations is profiled on both paths
+   (``path_profile``: busy share, kernels and host launches per
+   iteration);
 5. for each strategy, reset the counters, run its fit, read the counters
    (neither region kernel may launch: these strategies build no
    union-of-balls region), print one JSON line (wall, iterations, fill
@@ -75,17 +85,25 @@ Phases, each of which raises on failure:
    first 100, but in the capped SLICE fit only those of them that stopped
    at tolerance before the cap: a dataset still running at the cap has
    the live points' remainder bracket in its logZerr, many nats wide. At
-   least ``SLICE_MIN_HELD`` must have stopped;
+   least ``SLICE_MIN_HELD`` must have stopped. Each strategy's first
+   ``STRATEGY_EAGER_CHUNKS`` chunks (``max_chunks``) run on both paths and
+   are held bit for bit as in 4, and a slice is profiled on both;
 6. reset the counters, run the MUSE fit, read the counters (as in 4),
    check the shapes, that logZ is finite with logZerr > 0, and the no-star
-   identity on the empty spaxels: |median(logZ + yy/2)| <= 1;
-7. reset the counters, preempt and resume the horns fit, read the
-   counters (as in 4), print both legs' walls and the checkpoint's bytes
-   on disk, and check that the resumed result is phase 4's bit for bit
-   (logZ, logZerr, L, u, x, w, mask, iterations, evaluations, fill
-   rounds); then reset the counters, run the escalated MUSE fit, read the
-   counters, check it as in 6 and that it ran escalated chunks, and print
-   its rounds, evaluations, wall and launches beside phase 6's;
+   identity on the empty spaxels: |median(logZ + yy/2)| <= 1; its first
+   ``MUSE_EAGER_CHUNKS`` chunks held bit for bit against their eager run
+   as in 4; a slice profiled;
+7. reset the counters, preempt and resume the horns fit of phase 4 at
+   ``pipeline_lookahead`` 0 on the captured path, read the counters (as
+   in 4), print both legs' walls and the checkpoint's bytes on disk, and
+   check that the resumed result is that fit's bit for bit (logZ,
+   logZerr, L, u, x, w, mask, iterations, evaluations, fill rounds); then
+   reset the counters, run the escalated MUSE fit, read the counters,
+   check it as in 6 and that it ran escalated chunks, print its rounds,
+   evaluations, wall and launches beside phase 6's, and hold it bit for
+   bit against its eager run as in 4. Print one JSON line
+   ``{"paths": [...], "profiles": [...]}`` of the comparisons and
+   profiles of phases 4-7;
 8. reset the counters, run the gradient backends, and check that neither
    region kernel launched (HMC and VI build no region). The analytic
    oracle is held, bar by bar (accept in (0.4, 1], |mean - c| < 0.1,
@@ -171,6 +189,19 @@ STRATEGIES = ("MULTIELLIPSOIDS", "SLICE", "GALILEAN")
 STRATEGY_BAR = {"MULTIELLIPSOIDS": 0.95, "SLICE": 0.95, "GALILEAN": 0.73}
 SLICE_MAX_SAMPLES = 2000  # SLICE's depth cut
 SLICE_MIN_HELD = 40  # of the first 100, stopped at tolerance before the cap
+# the eager reference of each strategy fit, cut in depth to its first
+# chunks (max_chunks, 50 iterations each) to keep the smoke inside its
+# time limit
+STRATEGY_EAGER_CHUNKS = {"MULTIELLIPSOIDS": 10, "SLICE": 4, "GALILEAN": 6}
+# the horns fit's and the MUSE fit's eager references, cut alike to keep
+# the smoke inside its time limit (phase 9's one NCCL rank holds the
+# eager code against phase 4's captured fit at full depth); the escalated
+# MUSE fit's runs to the cap, to hold its escalated chunks
+HORNS_EAGER_CHUNKS, MUSE_EAGER_CHUNKS = 40, 20
+# the capped slices profiled on both paths (busy share, kernels dispatched
+# from the host per iteration)
+PATH_PROFILE_SAMPLES = {"horns": 150, "MULTIELLIPSOIDS": 100, "SLICE": 30,
+                        "GALILEAN": 50, "MUSE": 150}
 # the escalated MUSE fit against phase 6's on the spaxels with a star that
 # ran escalated rounds and stopped at tolerance before the cap in both: the
 # share within 3 sqrt(errA^2 + errB^2) + 0.5 of each other, and the least
@@ -272,7 +303,9 @@ def _device_ms(fn, n=TIMING_LAUNCHES):
 
     fn()
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    # device records only: the host ops of the plain versions would be
+    # most of the trace and of its processing time
+    acts = [ProfilerActivity.CUDA]
     cuda = torch.autograd.DeviceType.CUDA
     for _ in range(5):
         with torch_profile(activities=acts) as prof:
@@ -443,6 +476,143 @@ def _graph_nodes(dot):
     return nodes
 
 
+def launch_counts(neighbors, result, regions=True):
+    """Both kernels' launches since the counters were set to 0, and the
+    region proposal rounds of ``result``'s run: with a friends constrainer
+    (``regions``), its ``region`` and ``focus`` steps, replayed or run
+    eagerly (each samples the union-of-balls region once, with one
+    ``count_within``); the other constrainers sample none."""
+    steps = result.stats["steps"]
+    return dict(count_within=neighbors.count_within.launches,
+                bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
+                region_rounds=(steps.get("region", 0) + steps.get("focus", 0)
+                               if regions else 0))
+
+
+def path_stats(result):
+    """The chunk path a fit ran and what it took per iteration."""
+    st, n = result.stats, max(result.niterations, 1)
+    return dict(chunk_path=st["chunk_path"],
+                graph_replays_per_iter=st["graph_replays"] / n,
+                host_syncs_per_iter=st["host_syncs"] / n,
+                capture_s=st["capture_s"])
+
+
+def compare_paths(label, fit, neighbors, graph=None, regions=True):
+    """A fit on the captured path (``graph``: its result, wall and launch
+    counts, or run here as ``fit(eager=False)``) against ``fit(eager=True)``,
+    the eager run of the same steps on the card from the same seed: logZ,
+    logZerr, L, iterations, fill rounds, evaluations and both kernels'
+    launches must be equal bit for bit (``regions``: as in
+    ``launch_counts``). Prints and returns the record."""
+    runs = []
+    for eager in (False, True):
+        if graph is not None and not eager:
+            runs.append(graph)
+            continue
+        neighbors.count_within.launches = 0
+        neighbors.bootstrapped_sq_radius.launches = 0
+        _sync()
+        t0 = time.perf_counter()
+        r = fit(eager)
+        _sync()
+        runs.append((r, time.perf_counter() - t0,
+                     launch_counts(neighbors, r, regions)))
+    (g, wall_g, n_g), (e, wall_e, n_e) = runs
+    bitwise = dict(
+        logZ=bool(np.array_equal(g.logZ, e.logZ)),
+        logZerr=bool(np.array_equal(g.logZerr, e.logZerr)),
+        L=bool(np.array_equal(g.L, e.L)),
+        counts=(g.niterations, g.stats["fill_rounds"], g.ndraws)
+        == (e.niterations, e.stats["fill_rounds"], e.ndraws),
+        launches=n_g == n_e)
+    rec = dict(fit=label, wall_s_graph=wall_g, wall_s_eager=wall_e,
+               niter=g.niterations, fill_rounds=g.stats["fill_rounds"],
+               ndraws=g.ndraws, launches=n_g,
+               graph=path_stats(g), eager=path_stats(e), bitwise=bitwise)
+    print(json.dumps(rec))
+    assert g.stats["chunk_path"] == "graph" and e.stats["chunk_path"] == "eager"
+    assert all(bitwise.values()), (label, bitwise, n_g, n_e)
+    return rec
+
+
+def path_profile(label, fit):
+    """A capped fit on each path, once timed and once under the profiler:
+    the busy share (kernel time over the unprofiled wall), the kernels per
+    iteration, and the kernel and graph launches the host dispatched per
+    iteration (runtime API calls in the trace). On the captured path the
+    profiler starts once the fit's graphs are captured (a capture under
+    the profiler fails), so its trace lacks the capture. The eager path is
+    traced with device activity only (its host ops would be most of the
+    trace and of its processing time); its launches are the runtime calls
+    that activity records, None where it records none."""
+    cuda = torch.autograd.DeviceType.CUDA
+    rec = dict(fit=label)
+    for eager in (False, True):
+        _sync()
+        t0 = time.perf_counter()
+        r = fit(eager)
+        _sync()
+        wall = time.perf_counter() - t0
+        events = _profiled(lambda: fit(eager), captures=not eager,
+                           host=not eager)
+
+        n = max(r.niterations, 1)
+        kernels = sum(e.count for e in events if e.device_type == cuda)
+        launched = sum(e.count for e in events if e.device_type != cuda
+                       and e.key.startswith(("cudaLaunchKernel",
+                                             "cuLaunchKernel")))
+        graphs = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+        traced = launched + graphs > 0
+        rec["eager" if eager else "graph"] = dict(
+            niter=r.niterations, wall_s=wall,
+            busy_share=(_kernel_us(events) / 1e6 / wall) if kernels else None,
+            kernels_per_iter=kernels / n,
+            host_kernel_launches_per_iter=launched / n if traced else None,
+            host_graph_launches_per_iter=graphs / n if traced else None,
+            **path_stats(r))
+    print(json.dumps(rec))
+    return rec
+
+
+def _profiled(fn, captures=True, host=True):
+    """``fn()`` under the profiler (device activity, and host activity
+    where ``host``), its event averages. Where ``fn`` captures CUDA graphs
+    the profiler starts once the first program is captured: a capture
+    under the profiler fails."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from massivedatans_tpu_torch.ns import engine
+
+    on_card = DEVICE == "cuda"
+    prof = torch_profile(activities=([ProfilerActivity.CUDA] if on_card
+                                     else []) + (
+        [ProfilerActivity.CPU] if host or not on_card else []))
+    capture = engine.ChunkProgram._capture
+    started = []
+
+    def capture_then_profile(self):
+        capture(self)
+        if not started:
+            prof.start()
+            started.append(True)
+
+    if captures and DEVICE == "cuda":
+        engine.ChunkProgram._capture = capture_then_profile
+    else:
+        prof.start()
+        started.append(True)
+    try:
+        fn()
+        _sync()
+    finally:
+        engine.ChunkProgram._capture = capture
+        if started:
+            prof.stop()
+    assert started, "the captured path captured nothing"
+    return prof.key_averages()
+
+
 def _count_rounds(region):
     """Wrap ``region.sample_region`` (which the strategies call once per
     region proposal round) with a counter; returns the counter list."""
@@ -548,17 +718,12 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         check_launch_alone(neighbors, region, gen, tmp)
 
-    rounds = _count_rounds(region)
-
     def reset_counts():
         neighbors.count_within.launches = 0
         neighbors.bootstrapped_sq_radius.launches = 0
-        rounds.clear()
 
-    def read_counts():
-        counts = dict(count_within=neighbors.count_within.launches,
-                      bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
-                      region_rounds=len(rounds))
+    def read_counts(result):
+        counts = launch_counts(neighbors, result)
         assert counts["count_within"] > 0, counts
         assert counts["bootstrapped_sq_radius"] > 0, counts
         # one count launch per region proposal round, nothing else
@@ -569,19 +734,25 @@ def main(argv=None):
     phase("phase 4: the horns path")
     cfg = RunConfig()
     data = gen_horns(1000)
+
+    def horns(cfg_, eager=False, **run_opts):
+        return run_fit(data["x"], data["y"], cfg_, DEVICE,
+                       noise_level=data["noise_level"], eager=eager,
+                       **run_opts)
+
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = run_fit(data["x"], data["y"], cfg, DEVICE, noise_level=data["noise_level"])
+    result = horns(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = read_counts(result)
     print(json.dumps(dict(
         fit=f"horns ndata={data['y'].shape[1]} nlive={cfg.nlive_points}",
         wall_s=wall, niter=result.niterations, ndraws=result.ndraws,
         fill_rounds=result.stats["fill_rounds"], launches=launches,
         member_overflow=result.stats["member_overflow"],
-        timing=result.stats["timing"],
+        **path_stats(result), timing=result.stats["timing"],
         peak_mem_GB=torch.cuda.max_memory_allocated() / 1e9)))
     D, K = data["y"].shape[1], cfg.nlive_points
     rows = result.niterations + K
@@ -599,20 +770,58 @@ def main(argv=None):
           f"3 logZerr + 0.5 (median |dlogZ| {np.median(dq):.3f}, "
           f"max {dq.max():.3f})")
     assert within >= int(np.ceil(0.95 * nq)), (within, nq)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [compare_paths(
+            f"horns, first {HORNS_EAGER_CHUNKS} chunks", lambda eager: horns(
+                cfg, eager, checkpoint_dir=os.path.join(
+                    tmp, "eager" if eager else "graph"),
+                max_chunks=HORNS_EAGER_CHUNKS), neighbors)]
+    # again at pipeline_lookahead 0 (phase 4 ran at the default, 1)
+    cfg0 = dataclasses.replace(cfg, pipeline_lookahead=0)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result0 = horns(cfg0)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    read_counts(result0)
+    within0 = int((np.abs(result0.logZ[:nq] - quad)
+                   < 3 * result0.logZerr[:nq] + 0.5).sum())
+    print(json.dumps(dict(
+        fit="horns, pipeline_lookahead 0 and 1", wall_s=[wall0, wall],
+        niter=[result0.niterations, result.niterations],
+        quad_within=[within0, within],
+        bitwise_equal=bool(np.array_equal(result0.L, result.L)),
+        **{k: [path_stats(result0)[k], path_stats(result)[k]]
+           for k in ("host_syncs_per_iter", "graph_replays_per_iter")},
+        timing=[result0.stats["timing"], result.stats["timing"]])))
+    assert within0 >= int(np.ceil(0.95 * nq)), (within0, nq)
+    profiles = [path_profile("horns", lambda eager: horns(dataclasses.replace(
+        cfg, max_samples=PATH_PROFILE_SAMPLES["horns"]), eager))]
 
     # --- phase 5: the other strategies ---
     phase("phase 5: the other strategies")
     strategy_launches = {}
     for name in STRATEGIES:
         cap = SLICE_MAX_SAMPLES if name == "SLICE" else 0
+        cfg_s = dataclasses.replace(cfg, constrainer=name, max_samples=cap)
         reset_counts()
         strategy_launches[name], within, held = strategy_fit(
-            run_fit, dataclasses.replace(cfg, constrainer=name,
-                                         max_samples=cap),
-            data, D, quad, neighbors, rounds)
+            run_fit, cfg_s, data, D, quad, neighbors)
         assert held >= (SLICE_MIN_HELD if cap else nq), (name, held)
         assert within >= np.ceil(STRATEGY_BAR[name] * held), (
             name, within, held)
+        with tempfile.TemporaryDirectory() as tmp:
+            cut = STRATEGY_EAGER_CHUNKS[name]
+            paths.append(compare_paths(
+                f"{name}, first {cut} chunks", lambda eager: horns(
+                    cfg_s, eager, checkpoint_dir=os.path.join(
+                        tmp, "eager" if eager else "graph"),
+                    max_chunks=cut), neighbors, regions=False))
+        profiles.append(path_profile(name, lambda eager: horns(
+            dataclasses.replace(cfg_s,
+                                max_samples=PATH_PROFILE_SAMPLES[name]),
+            eager)))
 
     # --- phase 6: the MUSE path ---
     phase("phase 6: the MUSE path")
@@ -620,8 +829,18 @@ def main(argv=None):
         fixture = muse_fixture(tmp)
         reset_counts()
         muse_rec, muse_res = muse_check(fixture, args.muse_max_samples)
-        muse_launches = read_counts()
+        muse_launches = read_counts(muse_res)
         print("MUSE launches:", json.dumps(muse_launches))
+        paths.append(compare_paths(
+            f"MUSE, first {MUSE_EAGER_CHUNKS} chunks", lambda eager: muse_fit(
+                fixture, args.muse_max_samples, run_opts=dict(
+                    eager=eager, max_chunks=MUSE_EAGER_CHUNKS,
+                    checkpoint_dir=os.path.join(
+                        tmp, "muse_eager" if eager else "muse_graph")))[0],
+            neighbors))
+        profiles.append(path_profile("MUSE", lambda eager: muse_fit(
+            fixture, PATH_PROFILE_SAMPLES["MUSE"],
+            run_opts=dict(eager=eager))[0]))
         if args.profile_out:
             profile(lambda: run_fit(data["x"], data["y"], dataclasses.replace(
                 cfg, max_samples=PROFILE_SAMPLES), DEVICE,
@@ -633,14 +852,24 @@ def main(argv=None):
         # --- phase 7: resume and escalation ---
         phase("phase 7: resume and escalation")
         reset_counts()
-        resume_phase(run_fit, cfg, data, result, os.path.join(tmp, "ckpt"))
-        resume_launches = read_counts()
+        resume_launches = resume_phase(run_fit, cfg0, data, result0,
+                                       os.path.join(tmp, "ckpt"), neighbors)
         print("resume launches:", json.dumps(resume_launches))
+        assert resume_launches["count_within"] \
+            == resume_launches["region_rounds"] > 0, resume_launches
+        assert resume_launches["bootstrapped_sq_radius"] > 0, resume_launches
         reset_counts()
         esc_rec, esc_res = muse_check(fixture, args.muse_max_samples,
                                       eval_batch_max=MUSE_EVAL_BATCH_MAX)
-        escalated_launches = read_counts()
+        escalated_launches = read_counts(esc_res)
         assert esc_rec["big_batch_chunks"] > 0, esc_rec
+        paths.append(compare_paths(
+            "MUSE escalated", lambda eager: muse_fit(
+                fixture, args.muse_max_samples, run_opts=dict(eager=eager),
+                eval_batch_max=MUSE_EVAL_BATCH_MAX)[0],
+            neighbors, graph=(esc_res, esc_rec["wall_s"],
+                              escalated_launches)))
+        print(json.dumps({"paths": paths, "profiles": profiles}))
         # the escalated rounds, held on the spaxels with a star that ran
         # them (the two fits are bitwise alike until the first switch, so
         # a spaxel done before it has phase 6's logZ to the bit) and that
@@ -672,11 +901,9 @@ def main(argv=None):
         reset_counts()
         backends = backends_phase(data, result, fixture, muse_res)
         counts = dict(count_within=neighbors.count_within.launches,
-                      bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
-                      region_rounds=len(rounds))
+                      bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches)
         # HMC, VI and refine build no region: neither kernel launches
-        assert counts == dict(count_within=0, bootstrapped_sq_radius=0,
-                              region_rounds=0), counts
+        assert counts == dict(count_within=0, bootstrapped_sq_radius=0), counts
         print(json.dumps({"backends": backends}))
 
         # --- phase 9: the sharded path ---
@@ -1031,8 +1258,7 @@ def backends_phase(data, horns_result, fixture, muse_result):
     return records
 
 
-def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, rounds,
-                 device=DEVICE):
+def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, device=DEVICE):
     """Fit the first ``ndata`` horns spectra with ``cfg.constrainer``,
     print its record and check the path and the shapes: no region kernel
     launched, finite evidences, logZerr > 0. Returns the launch counts, how
@@ -1047,9 +1273,7 @@ def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, rounds,
                      noise_level=data["noise_level"])
     sync()
     wall = time.perf_counter() - t0
-    counts = dict(count_within=neighbors.count_within.launches,
-                  bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
-                  region_rounds=len(rounds))
+    counts = launch_counts(neighbors, result, regions=False)
     nq = min(len(quad), ndata)
     dq = np.abs(result.logZ[:nq] - quad[:nq])
     held = stopped_before_cap(result, cfg.max_samples, nq)
@@ -1062,8 +1286,8 @@ def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, rounds,
         fill_rounds=result.stats["fill_rounds"],
         rounds_per_iter=result.stats["fill_rounds"] / max(result.niterations, 1),
         launches=counts, member_overflow=result.stats["member_overflow"],
-        stalled=result.stats["stalled"], timing=result.stats["timing"],
-        quad_within=within, quad_held=int(held.sum()), quad_n=nq,
+        stalled=result.stats["stalled"], **path_stats(result),
+        timing=result.stats["timing"], quad_within=within, quad_held=int(held.sum()), quad_n=nq,
         median_dlogZ_held=float(np.median(dq[held])) if held.any() else None,
         max_dlogZ_held=float(dq[held].max(initial=0.0)))
     print(json.dumps(rec))
@@ -1087,10 +1311,11 @@ def stopped_before_cap(result, cap, n):
     return (ran <= cap) & ~result.stats["stalled_mask"][:n]
 
 
-def resume_phase(run_fit, cfg, data, full, ckpt_dir):
-    """Preempt the horns fit of phase 4 halfway through its chunks, resume
-    it from the checkpoint with a fresh generator seeded alike, and check
-    that the two legs give phase 4's result bit for bit."""
+def resume_phase(run_fit, cfg, data, full, ckpt_dir, neighbors):
+    """Preempt the horns fit ``full`` (phase 4's at ``cfg``, lookahead 0)
+    halfway through its chunks, resume it from the checkpoint with a fresh
+    generator seeded alike, and check that the two legs give its result
+    bit for bit, on the captured path. Returns the launch counts."""
     max_chunks = full.stats["chunks"] // 2
     legs = []
     for leg in range(2):
@@ -1120,9 +1345,15 @@ def resume_phase(run_fit, cfg, data, full, ckpt_dir):
         bitwise=same)))
     assert part.stats["interrupted"] and not resumed.stats["interrupted"]
     assert part.stats["chunks"] == max_chunks > 0
+    assert part.stats["chunk_path"] == resumed.stats["chunk_path"] == "graph"
     assert all(same.values()), same
     assert (resumed.niterations, resumed.ndraws, resumed.stats["fill_rounds"]) \
         == (full.niterations, full.ndraws, full.stats["fill_rounds"])
+    counts = {k: launch_counts(neighbors, r)["region_rounds"]
+              for k, r in (("part", part), ("resumed", resumed))}
+    return dict(count_within=neighbors.count_within.launches,
+                bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
+                region_rounds=counts["part"] + counts["resumed"])
 
 
 def _sync_on(device):
@@ -1427,7 +1658,6 @@ def profile(fit, path):
     """Time a short capped fit without and with the profiler; write the
     per-kernel device-time tables and the device busy share (kernel time
     over the unprofiled wall)."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
 
     def run():
         fit()
@@ -1437,10 +1667,7 @@ def profile(fit, path):
     t0 = time.perf_counter()
     run()
     wall = time.perf_counter() - t0
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        run()
-    events = prof.key_averages()
+    events = _profiled(run)
     busy = _kernel_us(events) / 1e6
     cuda = torch.autograd.DeviceType.CUDA
     ours = {e.key: (e.count, e.self_device_time_total) for e in events

@@ -116,6 +116,7 @@ class RunConfig:
                                      # transfer round trips); costs at most
                                      # `lookahead` wasted no-op chunks at
                                      # termination. 0 = fully synchronous.
+                                     # The port honours it (ns/integrator.py)
     seed: int = 1                    # numpy.random.seed(1) (sample.py:162)
     matmul_precision: str = "highest"  # likelihood/distance matmul precision
     use_focus: bool = True           # focused (empty-shelf) region after superset draws

@@ -26,7 +26,13 @@ The format is this package's own, tagged ``format`` =
   written before they are read, and row ``P`` is a write sink);
 - the ``torch.Generator`` that drives the run is stored beside the state
   (``get_state()``, with its device type): the JAX package keeps its key
-  inside the state, the port passes the generator beside it.
+  inside the state, the port passes the generator beside it;
+- the integrator's host context holds, beside the running mask, the pile
+  compaction predictor (``prev_pile_size``, ``growth_est``, as the JAX
+  package's) and the fill rates the chunk program plans its blocks from
+  (``block_rates``, NaN before the first chunk), so that a resumed run
+  compacts and replays as the uninterrupted one (version 2; version 1
+  lacked both).
 
 A JAX package checkpoint (state stored by position, no format tag), a
 checkpoint of another format version, and a checkpoint whose shapes or
@@ -47,7 +53,7 @@ from massivedatans_tpu_torch.ns.engine import EngineState
 from massivedatans_tpu_torch.ns.shelves import Shelves
 
 FORMAT = "massivedatans_tpu_torch"
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2
 
 _STATE = "state.npz"
 _HOST = "host.npz"

@@ -14,11 +14,16 @@ Counterpart of ``massivedatans_tpu/ns/engine.py`` (reference
   on the device as part of each iteration, with a per-dataset volume ledger.
 
 The JAX package runs a whole chunk of iterations as one device program
-(``lax.while_loop``); here the fill loop and the iteration loop are Python
-loops. Their round counters are host integers, so the refocus and
-column-round decisions read nothing from the device; the loop conditions
-read one flag per fill round and the rebuild cadence one flag per
-iteration. Random draws come from an explicit ``torch.Generator``.
+(``lax.while_loop`` over iterations and fill rounds, ``lax.cond`` for the
+refocus, the round kind and the rebuild cadence). Here a chunk is a
+``ChunkProgram``: a few steps (the chunk start, an iteration's prologue,
+one fill round of each kind, an iteration's end) whose control is held in
+device flags, each step a no-op on the state where its flag is off. On a
+CUDA device every step is captured once as a CUDA graph and the host
+replays a schedule of them in blocks, reading one status copy per block;
+on the CPU, under a mesh and on request the same steps run eagerly, with
+the same operations in the same order. Random draws come from an explicit
+``torch.Generator``, registered with every graph.
 
 Under a dataset mesh (``parallel/sharded.py``) each rank holds a block of
 the datasets and passes its data-axis process ``group`` (and, with the
@@ -33,7 +38,10 @@ generators stay in step. ``group=None`` is the single-device path.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
+import time
 
 import torch
 
@@ -46,7 +54,6 @@ from massivedatans_tpu_torch.parallel.sharded import (
     all_gather_rows,
     axis_size,
     global_any,
-    global_max,
     global_or_rows,
 )
 
@@ -182,7 +189,8 @@ def unique_members(live_idx, col_mask, capacity: int, a, group=None,
     of all values: the member set is the single-device one bit for bit,
     overflow or not (the JAX package draws a second key for the gathered
     pass instead). Overflow is the max over ranks of the local flag or the
-    gathered pass's flag.
+    gathered pass's flag; the local flags ride the gather, each closing its
+    rank's row.
     """
     flat = torch.where(col_mask[None, :], live_idx, -1).reshape(-1)
     if extra_idx is not None:
@@ -190,10 +198,12 @@ def unique_members(live_idx, col_mask, capacity: int, a, group=None,
     members, mask, overflow = _dedup_random(flat, capacity, a)
     if group is None:
         return members, mask, overflow
-    gathered = all_gather_rows(torch.where(mask, members, -1), group)
-    members, mask, g_overflow = _dedup_random(gathered, capacity, a)
-    return members, mask, torch.maximum(global_max(overflow, group),
-                                        g_overflow)
+    rows = all_gather_rows(torch.cat([torch.where(mask, members, -1),
+                                      overflow.reshape(1)]), group)
+    rows = rows.reshape(-1, capacity + 1)
+    members, mask, g_overflow = _dedup_random(rows[:, :capacity].reshape(-1),
+                                              capacity, a)
+    return members, mask, torch.maximum(rows[:, capacity].amax(), g_overflow)
 
 
 def _build_geometry_from(strategy, state: EngineState, col_mask, generator,
@@ -227,8 +237,9 @@ def _build_geometry_from(strategy, state: EngineState, col_mask, generator,
 
 
 def ledger_constant(nlive: int, device):
-    """``log(1 - exp(-1/K))`` in float32, the slab-width factor."""
-    t = torch.tensor(-1.0 / nlive, dtype=torch.float32, device=device)
+    """``log(1 - exp(-1/K))`` in float32, the slab-width factor (made on
+    the device: a host tensor's copy cannot be captured)."""
+    t = torch.full((), -1.0 / nlive, dtype=torch.float32, device=device)
     return torch.log1p(-torch.exp(t))
 
 
@@ -351,254 +362,662 @@ def _column_proposals(pile_u, live_idx, empty, generator, B: int,
     return u, ok & in_cube & empty.any(), cols
 
 
-def _fill_shelves(problem: Problem, state: EngineState, strategy, geom,
-                  sstate, cfg: RunConfig, member_capacity: int, generator,
-                  budget_left: int | None = None, live_bot=None, group=None,
-                  model_group=None):
-    """Propose/evaluate/scatter until every running dataset has a queued
-    candidate (reference fill loop, multi_nested_sampler.py:365-489).
+# --- the chunk as a program of captured steps -------------------------------
 
-    ``sstate`` is the strategy's state (``strategy.init_chains``); it is
-    carried through the rounds and fed back after each scoring (a refocus
-    rebuilds the geometry and keeps it). ``budget_left`` meters fill rounds
-    across a chunk; the loop also exits when it reaches zero, leaving some
-    shelves empty (those datasets skip this iteration). Returns
-    ``(state, budget_left)``.
+# the most slots a block holds, and the most rounds a slot or a
+# continuation runs (ChunkProgram.plan)
+_BLOCK_SLOTS = 16
+_SLOT_ROUNDS = 32
 
-    Column proposals draw a ``[D]`` tiebreak and read the empty datasets
-    of this rank only, so they run only where the data axis has one rank
-    (the JAX package turns them off under any mesh; at one rank they keep
-    the single-device trajectory).
+
+def _leaves(tree):
+    """The tensors of a state, a geometry or a strategy state, in a fixed
+    order: dataclasses by field, tuples in order; other values (the host
+    int ``n_groups``) are not leaves."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree)
+                for t in _leaves(getattr(tree, f.name))]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _leaves(x)]
+    return []
+
+
+def _clone_tree(tree):
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _clone_tree(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(x) for x in tree)
+    return tree
+
+
+def _pairs(dst, src):
+    out = []
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        if d is s:
+            continue
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"cannot write {s.dtype}{list(s.shape)} into "
+                             f"{d.dtype}{list(d.shape)}")
+        out.append((d, s))
+    return out
+
+
+def _assign(dst, src):
+    """Copy the tensors of ``src`` into those of ``dst``, a tree of the
+    same structure, shapes and dtypes; tensors that already are ``dst``'s
+    are skipped. ``src`` must not hold views of ``dst``."""
+    for d, s in _pairs(dst, src):
+        d.copy_(s)
+
+
+def _commit(dst, src, pred):
+    """``_assign`` where the 0-dim bool ``pred`` holds, ``dst`` as it was
+    where it does not. Every value is selected before any is written."""
+    pairs = _pairs(dst, src)
+    vals = [torch.where(pred, s, d) for d, s in pairs]
+    for (d, _), v in zip(pairs, vals):
+        d.copy_(v)
+
+
+@dataclasses.dataclass
+class ChunkCarry:
+    """What a chunk's steps read and write. Every tensor keeps its storage
+    for the life of the program: a captured step reads and writes these
+    addresses, and a step writes its results into them in place."""
+
+    state: EngineState
+    geom: object              # the main geometry
+    fgeom: object             # the open fill's geometry (refocus replaces it)
+    sstate: object            # the strategy's chains (strategy.init_chains)
+    live_bot: torch.Tensor    # [k, D] live_bottom at the iteration's start
+    dead: DeadChunk           # [n_iters + 1, D]; row n_iters is a write sink
+    budget_in: torch.Tensor   # int64: the chunk's fill-round budget (host)
+    n_groups: torch.Tensor    # int32: state.n_groups (host)
+    budget: torch.Tensor      # int64: fill rounds left in the chunk
+    rnd: torch.Tensor         # int32: rounds of the open fill
+    open: torch.Tensor        # bool: an iteration's fill is open
+    hold: torch.Tensor        # bool: the open fill outran its slot
+    cursor: torch.Tensor      # int32: iterations done, dead rows written
+    chunk_rounds: torch.Tensor  # int32: fill rounds run in the chunk
+    chunk_fills: torch.Tensor   # int32: the chunk's iterations that ran a round
+    status: torch.Tensor      # int64[6]: hold, any running, cursor, rnd,
+                              # chunk_rounds, chunk_fills, as the last
+                              # "end" step left them
+
+
+class ChunkProgram:
+    """A chunk of up to ``n_iters`` iterations (``run_chunk_inner`` of the
+    JAX package) as a few fixed steps over a ``ChunkCarry``:
+
+    - ``start``: the chunk-start geometry build, the budget and cursors;
+    - ``begin``: an iteration's prologue (shelf cleaning, the rebuild at
+      its cadence, fresh strategy chains), which opens its fill;
+    - one fill round of each kind the round schedule uses: ``region`` (the
+      strategy's proposals from the fill's geometry), ``focus`` (a refocus
+      rebuild from the empty-shelf datasets, then a ``region`` round) and
+      ``column`` (``_column_proposals``);
+    - ``end``: the advance, the evidence update and the termination check,
+      which writes the dead row at the device cursor and closes the fill.
+
+    Every step is predicated on device flags: ``begin`` acts only when no
+    fill is open, a dataset runs and the chunk has iterations left; a round
+    only while the fill is open and a running dataset still has an empty
+    shelf, within the budget and ``cfg.max_fill_rounds``; ``end`` only once
+    the fill is done. A step whose flag is off leaves the state, the
+    counters and the shelves as they were (its random draws are spent). So
+    the host replays a schedule fixed in advance: blocks of ``m`` slots of
+    ``begin``, ``R`` rounds (kind by round index) and ``end``, and reads
+    one status copy per block. A fill that outruns its ``R`` rounds sets
+    ``hold``, which turns every later step of the block off; the next block
+    clears it and goes on with rounds ``R..R+C-1`` of that fill (``plan``).
+
+    With ``capture``, each step is captured once as a CUDA graph
+    (``torch.cuda.CUDAGraph``, the run's generator registered with it)
+    and the blocks are graph replays; without, the same step functions run
+    eagerly: on the CPU, under a mesh (whose gloo collectives cannot be
+    captured), and as the card's reference. Both dispatch the same operations
+    in the same order, so they give the same state bit for bit.
     """
-    S = cfg.shelf_capacity
-    # nsuperset_draws counts single candidates (multi_nested_sampler.py:373);
-    # a round evaluates eval_batch at once
-    nsuperset_rounds = max(1, -(-cfg.nsuperset_draws // cfg.eval_batch))
-    focus_every = 8
-    if live_bot is None:
-        live_bot = shelves_lib.live_bottom(state.live_L, S)
-    budget = 2 ** 30 if budget_left is None else budget_left
-    col_capable = (cfg.use_column_focus and axis_size(group) == 1
-                   and isinstance(geom, Region))
-    n_groups = max(state.n_groups, 1)
-    D = state.live_L.shape[1]
-    P = state.pile_capacity
-    device = state.live_L.device
-    cols_all = torch.arange(D, device=device)[None, :]
-    B_raw = max(cfg.column_proposal_batch or cfg.proposal_batch, cfg.eval_batch)
 
-    pile_size, shelves, ndraws = state.pile_size, state.shelves, state.ndraws
-    overflow = torch.zeros((), dtype=_I32, device=device)
-    rnd = 0
+    def __init__(self, problem: Problem, cfg: RunConfig, strategy,
+                 member_capacity: int, n_iters: int, generator, state,
+                 group=None, model_group=None, capture: bool = False):
+        self.problem, self.cfg, self.strategy = problem, cfg, strategy
+        self.member_capacity, self.n_iters = member_capacity, n_iters
+        self.generator = generator
+        self.group, self.model_group = group, model_group
+        self.device = state.live_L.device
+        # nsuperset_draws counts single candidates
+        # (multi_nested_sampler.py:373); a round evaluates eval_batch
+        self.nsuperset_rounds = max(1, -(-cfg.nsuperset_draws // cfg.eval_batch))
+        self.carry = self._make_carry(state)
+        self.col_capable = (cfg.use_column_focus and axis_size(group) == 1
+                            and isinstance(self.carry.geom, Region))
+        self.graphs, self.tallies = {}, {}
+        self.steps = collections.Counter()  # steps run, by name
+        self.replays = self.syncs = 0
+        self.capture_s = 0.0
+        self.rates = None
+        self._pinned = self._event = None
+        if capture:
+            self._capture()
 
-    def need_more(sh):
-        return bool(global_any(state.running & (sh.count == 0), group))
+    # --- set-up ---
 
-    more = need_more(shelves)
-    while rnd < cfg.max_fill_rounds and budget > 0 and more:
-        since = rnd - nsuperset_rounds
-        # focused draws: after nsuperset_draws rounds, rebuild the geometry
-        # from only the empty-shelf datasets' live points, cycling through
-        # the host-computed groups (multi_nested_sampler.py:375-381,415-460)
-        if cfg.use_focus and since >= 0 and since % focus_every == 0:
-            empty = state.running & (shelves.count == 0)
-            grp_mask = empty & (state.group_id == (since // focus_every) % n_groups)
-            col_mask = empty
-            if n_groups <= cfg.column_focus_groups:
-                col_mask = torch.where(global_any(grp_mask, group), grp_mask,
-                                       empty)
-            geom, ovf = _build_geometry_from(
-                strategy, state, col_mask, generator,
-                cfg, member_capacity, carry_cap=False, group=group)
-            overflow = overflow + ovf
+    def _make_carry(self, state) -> ChunkCarry:
+        """The carry around ``state``'s own tensors. The geometry and
+        chain buffers take their shapes from one build on a copy of the
+        run's generator, which leaves the run's draws as they were."""
+        cfg, device = self.cfg, self.device
+        fork = torch.Generator(device=device)
+        fork.set_state(self.generator.get_state())
+        geom, _ = _build_geometry_from(self.strategy, state, state.running,
+                                       fork, cfg, self.member_capacity,
+                                       group=self.group)
+        sstate = self.strategy.init_chains(geom, fork)
+        K, D = state.live_L.shape
+        T = self.n_iters + 1
 
-        # column rounds: alternate with region rounds once the datasets
-        # decoupled past the group-cycling regime, and take 3 of 4 rounds
-        # once this fill has gone column_focus_fallback_rounds unfilled
-        use_cols = col_capable and since >= 0 and (
-            (n_groups > cfg.column_focus_groups and since % 2 == 1)
-            or (cfg.column_focus_fallback_rounds > 0
-                and since >= cfg.column_focus_fallback_rounds
-                and since % 4 != 0))
-        if use_cols:
-            empty_now = state.running & (shelves.count == 0)
+        def scalar(dtype, value=0):
+            return torch.full((), value, dtype=dtype, device=device)
+
+        return ChunkCarry(
+            state=state, geom=_clone_tree(geom), fgeom=_clone_tree(geom),
+            sstate=_clone_tree(sstate),
+            live_bot=torch.zeros((min(cfg.shelf_capacity + 1, K), D),
+                                 dtype=torch.float32, device=device),
+            dead=DeadChunk(
+                idx=torch.full((T, D), -1, dtype=_I32, device=device),
+                L=torch.full((T, D), _NEG_INF, dtype=torch.float32,
+                             device=device),
+                logwidth=torch.zeros((T, D), dtype=torch.float32,
+                                     device=device),
+                running=torch.zeros((T, D), dtype=torch.bool, device=device)),
+            budget_in=scalar(torch.int64), n_groups=scalar(_I32, 1),
+            budget=scalar(torch.int64), rnd=scalar(_I32),
+            open=scalar(torch.bool), hold=scalar(torch.bool),
+            cursor=scalar(_I32), chunk_rounds=scalar(_I32),
+            chunk_fills=scalar(_I32),
+            status=torch.zeros((6,), dtype=torch.int64, device=device))
+
+    def _capture(self):
+        """Capture every step this configuration's schedule uses, into one
+        memory pool, on a stream of its own. The kernels' library is
+        loaded, the radius workspace of that stream made and the cuBLAS
+        and cuSOLVER handles initialised before, so nothing is allocated
+        outside the pool or created while capturing. A failure raises."""
+        from massivedatans_tpu_torch.ops import neighbors as kernels
+
+        t0 = time.perf_counter()
+        stream = torch.cuda.Stream(self.device)
+        kernels.prepare_stream(self.device, stream.cuda_stream)
+        with torch.cuda.stream(stream):
+            eye = torch.eye(3, device=self.device)
+            torch.linalg.cholesky_ex(eye @ eye)
+            torch.linalg.solve_triangular(eye, eye[None], upper=False)
+        stream.synchronize()
+        pool = torch.cuda.graph_pool_handle()
+        for name in ("start", "begin", "end", *self.kinds()):
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.generator)
+            before = [fn.captured for fn in kernels.KERNELS]
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                self._step(name)
+            self.tallies[name] = [fn.captured - b for fn, b in
+                                  zip(kernels.KERNELS, before)]
+            self.graphs[name] = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def kinds(self):
+        """The round kinds this configuration's schedule can use."""
+        return (("region",) + (("focus",) if self.cfg.use_focus else ())
+                + (("column",) if self.col_capable else ()))
+
+    def round_kind(self, r: int, n_groups: int) -> str:
+        """The kind of round ``r`` of a fill (multi_nested_sampler.py:
+        375-381,415-460): after ``nsuperset_draws`` the geometry is
+        refocused every 8th round on the empty-shelf datasets, cycling
+        through the groups; column rounds alternate with region rounds
+        once the datasets decoupled past ``column_focus_groups``, and take
+        3 of 4 rounds once the fill has gone
+        ``column_focus_fallback_rounds`` unfilled. A refocus round is never
+        a column round (``since`` is then a multiple of 8)."""
+        cfg = self.cfg
+        since = r - self.nsuperset_rounds
+        if since < 0:
+            return "region"
+        if cfg.use_focus and since % 8 == 0:
+            return "focus"
+        if self.col_capable and (
+                (n_groups > cfg.column_focus_groups and since % 2 == 1)
+                or (cfg.column_focus_fallback_rounds > 0
+                    and since >= cfg.column_focus_fallback_rounds
+                    and since % 4 != 0)):
+            return "column"
+        return "region"
+
+    # --- the steps ---
+
+    def _step(self, name: str):
+        """Run the step ``name`` eagerly (or, inside a capture, record it).
+        Steps are looked up here rather than held in a table of bound
+        methods: such a table would tie the program, and the process group
+        it holds under a mesh, into a reference cycle that outlives the
+        run (a gloo group freed at interpreter exit aborts the process)."""
+        if name in ("start", "begin", "end"):
+            return getattr(self, f"_step_{name}")()
+        return self._step_round(name)
+
+    def _step_start(self):
+        c, st = self.carry, self.carry.state
+        live = global_any(st.running, self.group)
+        geom, overflow = _build_geometry_from(
+            self.strategy, st, st.running, self.generator, self.cfg,
+            self.member_capacity, group=self.group)
+        _commit(c.geom, geom, live)
+        # the chunk-start build resets the cadence
+        _commit((st.member_overflow, st.draws_at_rebuild),
+                (st.member_overflow + overflow, st.ndraws), live)
+        c.budget.copy_(c.budget_in)
+        for t in (c.rnd, c.open, c.hold, c.cursor, c.chunk_rounds,
+                  c.chunk_fills):
+            t.zero_()
+        c.dead.idx.fill_(-1)
+        c.dead.L.fill_(_NEG_INF)
+        c.dead.logwidth.zero_()
+        c.dead.running.zero_()
+
+    def _step_begin(self):
+        cfg, c, st = self.cfg, self.carry, self.carry.state
+        any_running = global_any(st.running, self.group)
+        on = ~c.open & ~c.hold & any_running & (c.cursor < self.n_iters)
+        # one bottom-k pass supplies the insertion thresholds' bottom and
+        # the per-dataset minimum
+        live_bot = shelves_lib.live_bottom(st.live_L, cfg.shelf_capacity)
+        shelves = shelves_lib.clean(st.shelves, live_bot[0])
+        if cfg.region_rebuild_draws <= 0 and cfg.region_rebuild_every <= 1:
+            due = on
+        elif cfg.region_rebuild_draws > 0:
+            # reference cadence: rebuild after region_rebuild_draws
+            # likelihood-evaluated candidates (sample.py:134)
+            due = on & (st.ndraws - st.draws_at_rebuild
+                        >= cfg.region_rebuild_draws)
+        else:
+            due = on & ((st.iteration % cfg.region_rebuild_every) == 0)
+        geom, overflow = _build_geometry_from(
+            self.strategy, st, st.running, self.generator, cfg,
+            self.member_capacity, group=self.group)
+        _commit(c.geom, geom, due)
+        _commit((st.draws_at_rebuild, st.member_overflow),
+                (st.ndraws, st.member_overflow + overflow), due)
+        # fresh strategy chains every iteration, as in the JAX package
+        sstate = self.strategy.init_chains(c.geom, self.generator)
+        dst = [c.fgeom, c.sstate, c.live_bot, st.shelves, c.rnd]
+        src = [c.geom, sstate, live_bot, shelves, torch.zeros_like(c.rnd)]
+        if isinstance(c.geom, Region):  # force_shrink memory (MLFriends)
+            dst += [st.prev_scale, st.prev_radius]
+            src += [c.geom.metric.scale, c.geom.radius]
+        _commit(dst, src, on)
+        c.open.copy_(c.open | on)
+
+    def _step_round(self, kind: str):
+        """One fill round (reference fill loop, multi_nested_sampler.py:
+        365-489): propose, evaluate, scatter the acceptances into every
+        shelf, append accepted candidates to the pile, feed the strategy.
+        Column proposals draw a ``[D]`` tiebreak and read this rank's
+        empty datasets, so they run only where the data axis has one rank
+        (the JAX package turns them off under any mesh)."""
+        cfg, c, st = self.cfg, self.carry, self.carry.state
+        group = self.group
+        S, P = cfg.shelf_capacity, st.pile_capacity
+        D = st.live_L.shape[1]
+        empty = st.running & (st.shelves.count == 0)
+        # whether a running dataset still has an empty shelf anywhere rides
+        # the round's vote below (one reduction under a mesh)
+        going = c.open & ~c.hold & (c.budget > 0) & (c.rnd < cfg.max_fill_rounds)
+        if kind == "focus":
+            # rebuild the fill's geometry from the empty-shelf datasets'
+            # live points only, cycling through the host-computed groups
+            cycle = torch.remainder(torch.div(
+                c.rnd - self.nsuperset_rounds, 8, rounding_mode="floor"),
+                c.n_groups)
+            grp_mask = empty & (st.group_id == cycle)
+            col_mask = torch.where(
+                (c.n_groups <= cfg.column_focus_groups)
+                & global_any(grp_mask, group), grp_mask, empty)
+            fgeom, overflow = _build_geometry_from(
+                self.strategy, st, col_mask, self.generator, cfg,
+                self.member_capacity, carry_cap=False, group=group)
+        else:
+            fgeom = c.fgeom
+        if kind == "column":  # the strategy's chains stay as they are
+            B_raw = max(cfg.column_proposal_batch or cfg.proposal_batch,
+                        cfg.eval_batch)
             u, ok, cols = _column_proposals(
-                state.pile_u, state.live_idx, empty_now, generator, B_raw,
-                norm=strategy.norm, n_slots=cfg.column_slots)
-            take = torch.argsort((~ok).to(torch.uint8), stable=True)[:cfg.eval_batch]
+                st.pile_u, st.live_idx, empty, self.generator, B_raw,
+                norm=self.strategy.norm, n_slots=cfg.column_slots)
+            take = torch.argsort((~ok).to(torch.uint8),
+                                 stable=True)[:cfg.eval_batch]
             cand_u, valid, src_col = u[take], ok[take], cols[take]
-        else:  # column rounds leave sstate as it is
-            cand_u, valid, sstate = strategy.propose(geom, sstate, generator)
+            sstate = c.sstate
+        else:
+            cand_u, valid, sstate = self.strategy.propose(
+                fgeom, c.sstate, self.generator)
             src_col = None
-        cand_x = problem.transform_batch(cand_u)
-        L = problem.loglike_sharded(cand_x, model_group)    # [B, D]
+        cand_x = self.problem.transform_batch(cand_u)
+        L = self.problem.loglike_sharded(cand_x, self.model_group)  # [B, D]
 
-        thresh = shelves_lib.insertion_thresholds(live_bot, shelves)
-        space = shelves.count < S
-        above = state.running[None, :] & (L > thresh[None, :])
+        thresh = shelves_lib.insertion_thresholds(c.live_bot, st.shelves)
+        space = st.shelves.count < S
+        above = st.running[None, :] & (L > thresh[None, :])
         acc = valid[:, None] & space[None, :] & above
         if src_col is not None:
             # column-round candidates only fill their source column
-            acc = acc & (src_col[:, None] == cols_all)
-
+            acc = acc & (src_col[:, None]
+                         == torch.arange(D, device=self.device)[None, :])
         # strategy feedback: e.g. slice chains advance when the candidate
         # beats any running dataset's constraint (whitenedmcmc.py:305); and
         # the pile append for candidates accepted by any dataset. Under a
-        # mesh both are votes of every rank, taken in one reduction
-        chain_accept, newpt = above.any(dim=1), acc.any(dim=1)
-        if group is not None:
-            chain_accept, newpt = global_or_rows(
-                torch.stack([chain_accept, newpt]), group)
-        sstate = strategy.observe(sstate, cand_u, chain_accept)
-        sstate = strategy.refresh(geom, sstate, generator, chain_accept)
+        # mesh both are votes of every rank, taken in one reduction with
+        # the empty-shelf flag; a round that is off then appends nothing
+        # and evaluates nothing
+        vote = torch.cat([above.any(dim=1), acc.any(dim=1), empty.any()[None]])
+        vote = global_or_rows(vote, group)
+        B = cand_u.shape[0]
+        chain_accept, on = vote[:B], going & vote[2 * B]
+        newpt, acc, valid = vote[B:2 * B] & on, acc & on, valid & on
+        sstate = self.strategy.observe(sstate, cand_u, chain_accept)
+        sstate = self.strategy.refresh(fgeom, sstate, self.generator,
+                                       chain_accept)
 
         newpt_i = newpt.to(_I32)
-        slots = pile_size + torch.cumsum(newpt_i, dim=0, dtype=_I32) - newpt_i
+        slots = st.pile_size + torch.cumsum(newpt_i, dim=0, dtype=_I32) - newpt_i
         can_store = newpt & (slots < P)
         write_slots = torch.where(can_store, slots, P).to(torch.int64)
-        # appended in place (the pile is the largest tensor of the state,
-        # and the state passed in is consumed); dropped rows hit the sink
-        state.pile_u.index_copy_(0, write_slots, cand_u)
-        state.pile_x.index_copy_(0, write_slots, cand_x)
+        # appended in place; dropped rows hit the sink row P
+        st.pile_u.index_copy_(0, write_slots, cand_u)
+        st.pile_x.index_copy_(0, write_slots, cand_x)
         acc = acc & can_store[:, None]
         cand_pile_idx = torch.where(can_store, slots, -1)
+        _assign(st.shelves, shelves_lib.append_batch(st.shelves, cand_pile_idx,
+                                                     L, acc))
+        st.ndraws.add_(valid.sum())
+        st.pile_size.add_(can_store.sum(dtype=_I32))
+        _commit(c.sstate, sstate, on)
+        if kind == "focus":
+            _commit((c.fgeom, st.member_overflow),
+                    (fgeom, st.member_overflow + overflow), on)
+        c.rnd.add_(on.to(_I32))
+        c.budget.sub_(on.to(torch.int64))
+        c.chunk_rounds.add_(on.to(_I32))
+        st.fill_rounds.add_(on.to(_I32))
 
-        shelves = shelves_lib.append_batch(shelves, cand_pile_idx, L, acc)
-        ndraws = ndraws + valid.sum()
-        pile_size = pile_size + can_store.sum(dtype=_I32)
-        rnd += 1
-        budget -= 1
-        more = need_more(shelves)
+    def _step_end(self):
+        """Close a finished fill: replace each advancing dataset's worst
+        live point (multi_nested_sampler.py:494-534), keep the phantoms,
+        update the streaming evidence (multi_nested_integrator.py:105-161)
+        and check termination; the dead row goes to the device cursor."""
+        cfg, c, st = self.cfg, self.carry, self.carry.state
+        K, group = cfg.nlive_points, self.group
+        device = self.device
+        more = global_any(st.running & (st.shelves.count == 0), group)
+        done = ~more | (c.budget <= 0) | (c.rnd >= cfg.max_fill_rounds)
+        filling = c.open & ~c.hold
+        on = filling & done
+        hold = c.hold | (filling & ~done)
+        # a drained budget means the fill was truncated, not that the
+        # contour is unfillable: empty shelves then do not count toward
+        # stall termination
+        budget_out = c.budget <= 0
 
-    return state.replace(
-        pile_size=pile_size, shelves=shelves,
-        ndraws=ndraws, member_overflow=state.member_overflow + overflow,
-        fill_rounds=state.fill_rounds + rnd,
-    ), budget
+        # the argmin row is recovered as a one-hot mask by exact equality
+        # with the bottom's first row, ties resolved to the first row
+        Lmins = c.live_bot[0]
+        hit_raw = st.live_L == Lmins[None, :]
+        worst_hit = hit_raw & (torch.cumsum(hit_raw.to(_I32), dim=0) == 1)
+        filled = st.shelves.count > 0
+        adv = st.running & filled & on
+        dead_p = torch.where(worst_hit, st.live_idx, -1).amax(dim=0)
+        dead_L = Lmins  # live_L[worst, d] IS the per-column minimum
+        head_idx, head_L, shelves = shelves_lib.pop(st.shelves, adv)
+        upd = worst_hit & adv[None, :]
+        live_idx = torch.where(upd, head_idx[None, :], st.live_idx)
+        live_L = torch.where(upd, head_L[None, :], st.live_L)
+
+        # phantom-point memory (friends.py keep_phantom_points); under a
+        # mesh the dead set is all-gathered first (rank order is dataset
+        # order), which keeps the replicated buffer identical
+        phantom = {}
+        Q = st.phantom_idx.shape[0]
+        if Q > 0:
+            # one gather of both rows, in float64 (exact for float32 L
+            # and int32 pile rows)
+            cand = all_gather_rows(torch.stack([
+                torch.where(adv, dead_L, _NEG_INF).to(torch.float64),
+                torch.where(adv, dead_p, -1).to(torch.float64)]), group,
+                dim=1)
+            cand_L, cand_i = cand[0].to(torch.float32), cand[1].to(_I32)
+            top_L, sel = torch.topk(torch.cat([st.phantom_L, cand_L]), Q)
+            phantom = dict(phantom_idx=torch.cat([st.phantom_idx, cand_i])[sel],
+                           phantom_L=top_L)
+
+        logwidth = torch.where(
+            adv, ledger_constant(K, device) + st.logVolremaining, st.logwidth)
+        wi = logwidth + dead_L
+        logZnew, Hnew = _safe_logaddexp_update(st.logZ, st.H, wi, dead_L)
+        row = DeadChunk(idx=torch.where(adv, dead_p, -1),
+                        L=torch.where(adv, dead_L, _NEG_INF),
+                        logwidth=logwidth, running=st.running)
+        dest = torch.where(on, c.cursor, self.n_iters).to(torch.int64)[None]
+        for buf, value in zip(_leaves(c.dead), _leaves(row)):
+            buf.index_copy_(0, dest, value[None])
+        new = st.replace(
+            shelves=shelves, live_idx=live_idx, live_L=live_L,
+            # only the per-dataset minimum is ever replaced, so for K >= 2
+            # the live maximum is monotone
+            Lmax=(live_L.amax(dim=0) if K == 1 else
+                  torch.where(adv, torch.maximum(st.Lmax, head_L), st.Lmax)),
+            logZ=torch.where(adv, logZnew, st.logZ),
+            H=torch.where(adv, Hnew, st.H),
+            logwidth=logwidth,
+            last_logwidth=torch.where(st.running, logwidth, st.last_logwidth),
+            logVolremaining=st.logVolremaining - torch.where(adv, 1.0 / K, 0.0),
+            iteration=st.iteration + 1,
+            stall_count=torch.where(
+                budget_out, st.stall_count,
+                st.stall_count + (st.running & ~filled).to(_I32)),
+            **phantom)
+        _commit(st, device_termination(new, cfg, K), on)
+        c.cursor.add_(on.to(_I32))
+        c.chunk_fills.add_((on & (c.rnd > 0)).to(_I32))
+        c.open.copy_(c.open & ~on)
+        c.hold.copy_(hold)
+        c.status.copy_(torch.stack([
+            t.to(torch.int64) for t in (
+                c.hold, global_any(st.running, group), c.cursor, c.rnd,
+                c.chunk_rounds, c.chunk_fills)]))
+
+    # --- the host's schedule ---
+
+    @staticmethod
+    def plan(rates, resume_at=None):
+        """``(R, m, C)``: rounds per slot, slots per block and the rounds
+        that go on with a held fill, from ``rates`` = (the share of
+        iterations whose fill runs a round, the mean rounds of such a
+        fill), measured on this chunk so far or the last (None: nothing
+        measured yet), and the rounds a held fill has run.
+
+        Fills are mostly empty (the shelves hold stock) or long (a slice
+        chain's burn-in), so a slot gives no round while most fills are
+        empty and else the mean fill's; a block holds half as many slots
+        as come before a hold on average (a hold turns the block's later
+        slots off, whose steps still run); a held fill goes on for the
+        rounds a mean fill has left, or half as many as it ran, whichever
+        is more, so that a long fill takes few blocks."""
+        share, per_fill = rates if rates else (1.0, 1.0)
+        if share < 0.5:
+            R, p_hold = 0, share
+        else:
+            R, p_hold = min(_SLOT_ROUNDS, max(1, math.ceil(per_fill))), 0.5
+        m = max(1, min(_BLOCK_SLOTS, round(0.5 / max(p_hold,
+                                                     0.5 / _BLOCK_SLOTS))))
+        C = max(R, 1)
+        if resume_at is not None:
+            C = min(_SLOT_ROUNDS, max(1, math.ceil(per_fill) - resume_at,
+                                      math.ceil(0.5 * resume_at)))
+        return R, m, C
+
+    def _launch(self, name: str):
+        self.steps[name] += 1
+        graph = self.graphs.get(name)
+        if graph is None:
+            self._step(name)
+            return
+        from massivedatans_tpu_torch.ops import neighbors as kernels
+
+        graph.replay()
+        self.replays += 1
+        # a replay launches the kernels its capture recorded
+        for fn, n in zip(kernels.KERNELS, self.tallies[name]):
+            fn.launches += n
+
+    def _read_status(self):
+        """The host's one read of a block: the status the last ``end``
+        step wrote, copied into pinned memory behind an event."""
+        self.syncs += 1
+        status = self.carry.status
+        if status.device.type != "cuda":
+            return status.tolist()
+        if self._pinned is None:
+            self._pinned = torch.empty(status.shape, dtype=status.dtype,
+                                       pin_memory=True)
+            self._event = torch.cuda.Event()
+        self._pinned.copy_(status, non_blocking=True)
+        self._event.record()
+        self._event.synchronize()
+        return self._pinned.tolist()
+
+    def start(self, state: EngineState, fill_budget: int, rates):
+        """Load ``state`` into the carry (copying only the tensors that are
+        not the carry's own), set the budget and the group count, and
+        dispatch the chunk's ``start`` and first block without waiting."""
+        c = self.carry
+        _assign(c.state, state)
+        c.state.n_groups = state.n_groups
+        self._n_groups = max(state.n_groups, 1)
+        c.budget_in.fill_(fill_budget)
+        c.n_groups.fill_(self._n_groups)
+        self._hint = rates
+        self._cursor, self._resume_at = 0, None
+        self._plan = self.plan(rates)
+        self._launch("start")
+        self._enqueue_block()
+
+    def _enqueue_block(self):
+        R, m, C = self._plan
+        for slot in range(min(m, self.n_iters - self._cursor)):
+            if slot == 0 and self._resume_at is not None:
+                self.carry.hold.zero_()  # go on with the held fill
+                rounds = range(self._resume_at, self._resume_at + C)
+            else:
+                self._launch("begin")
+                rounds = range(R)
+            for r in rounds:
+                self._launch(self.round_kind(r, self._n_groups))
+            self._launch("end")
+
+    def finish(self):
+        """Read each block's status and dispatch the next block until every
+        dataset has terminated or ``n_iters`` iterations are done. Returns
+        ``(state, dead, rows)`` with the first ``rows`` rows of ``dead``
+        written."""
+        while True:
+            hold, running, cursor, rnd, rounds, fills = self._read_status()
+            self._cursor, self._resume_at = cursor, (rnd if hold else None)
+            self.rates = (fills / cursor, rounds / max(fills, 1)) \
+                if cursor else None
+            if not hold and (not running or cursor >= self.n_iters):
+                break
+            self._plan = self.plan(self.rates or self._hint, self._resume_at)
+            self._enqueue_block()
+        dead = self.carry.dead
+        return self.carry.state, DeadChunk(
+            idx=dead.idx[:self.n_iters], L=dead.L[:self.n_iters],
+            logwidth=dead.logwidth[:self.n_iters],
+            running=dead.running[:self.n_iters]), self._cursor
 
 
-def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
-                 member_capacity: int, generator, strategy=None,
-                 geom_carry=None, budget_left: int | None = None, group=None,
-                 model_group=None, any_running=None):
-    """One joint NS iteration: clean shelves, fill, advance every dataset,
-    update the streaming evidence (reference __next__ + integrator body).
+class ChunkRunner:
+    """The chunk programs of one run, one per (configuration, strategy):
+    the escalated configuration gets its own. They share one ``EngineState``
+    (the first program's carry state), so switching between them copies
+    nothing.
 
-    ``geom_carry``: the previous iteration's geometry, reused unless the
-    rebuild cadence fires. ``any_running``: ``global_any(state.running,
-    group)`` where the caller has it already (the chunk loop's
-    condition). Returns ``((state, geom, budget_left), dead)``.
+    On a CUDA device, without a mesh and unless ``eager``, every program
+    is captured (``path == "graph"``); otherwise its steps run eagerly
+    (``path == "eager"``). ``rates`` are the last chunk's fill rates, from
+    which the next chunk's first block plan follows (``ChunkProgram.plan``;
+    a checkpoint keeps them, so that a resumed run replays the same plan).
     """
-    if strategy is None:
-        from massivedatans_tpu_torch.ns.strategies import make_strategy
 
-        strategy = make_strategy(cfg)
-    K = cfg.nlive_points
-    device = state.live_L.device
+    def __init__(self, problem: Problem, member_capacity: int, n_iters: int,
+                 generator, group=None, model_group=None, eager: bool = False):
+        self.problem, self.member_capacity = problem, member_capacity
+        self.n_iters, self.generator = n_iters, generator
+        self.group, self.model_group = group, model_group
+        self.capture = (not eager and generator.device.type == "cuda"
+                        and group is None and model_group is None)
+        self.programs = {}
+        self.rates = None
+        self._active = None
 
-    # one bottom-k pass supplies the sorted bottom (insertion thresholds)
-    # and the per-dataset minimum; the argmin row is recovered as a one-hot
-    # mask by exact equality, ties resolved to the first row
-    live_bot = shelves_lib.live_bottom(state.live_L, cfg.shelf_capacity)
-    Lmins = live_bot[0]
-    hit_raw = state.live_L == Lmins[None, :]
-    worst_hit = hit_raw & (torch.cumsum(hit_raw.to(_I32), dim=0) == 1)
-    state = state.replace(shelves=shelves_lib.clean(state.shelves, Lmins))
-    # a dataset running anywhere on the mesh; ``running`` changes only in
-    # device_termination at the end, so this serves the rebuild cadence
-    # and the iteration counter alike
-    if any_running is None:
-        any_running = global_any(state.running, group)
+    @property
+    def path(self) -> str:
+        return "graph" if self.capture else "eager"
 
-    if geom_carry is None or (
-        cfg.region_rebuild_draws <= 0 and cfg.region_rebuild_every <= 1
-    ):
-        do = True
-    elif cfg.region_rebuild_draws > 0:
-        # reference cadence: rebuild after region_rebuild_draws
-        # likelihood-evaluated candidates (sample.py:134)
-        do = bool((state.ndraws - state.draws_at_rebuild
-                   >= cfg.region_rebuild_draws) & any_running)
-    else:
-        do = bool(((state.iteration % cfg.region_rebuild_every) == 0)
-                  & any_running)
-    if do:
-        geom, overflow = _build_geometry_from(
-            strategy, state, state.running, generator, cfg, member_capacity,
-            group=group)
-        state = state.replace(
-            draws_at_rebuild=state.ndraws,
-            member_overflow=state.member_overflow + overflow)
-    else:
-        geom = geom_carry
-    if isinstance(geom, Region):  # force_shrink memory (MLFriends only)
-        state = state.replace(prev_scale=geom.metric.scale,
-                              prev_radius=geom.radius)
-    # fresh strategy state every iteration, as in the JAX package
-    sstate = strategy.init_chains(geom, generator)
+    def _program(self, cfg, strategy, state) -> ChunkProgram:
+        key = (cfg, id(strategy))
+        prog = self.programs.get(key)
+        if prog is None:
+            if self.programs:  # share the first program's state
+                state = next(iter(self.programs.values())).carry.state
+            prog = self.programs[key] = ChunkProgram(
+                self.problem, cfg, strategy, self.member_capacity,
+                self.n_iters, self.generator, state, self.group,
+                self.model_group, capture=self.capture)
+        return prog
 
-    state, budget_left = _fill_shelves(
-        problem, state, strategy, geom, sstate, cfg, member_capacity,
-        generator, budget_left, live_bot=live_bot, group=group,
-        model_group=model_group)
-    # a drained budget means the fill was truncated, not that the contour is
-    # unfillable: empty shelves then do not count toward stall termination
-    budget_out = budget_left <= 0
+    def start(self, state: EngineState, cfg: RunConfig, strategy,
+              fill_budget: int | None = None) -> EngineState:
+        """Dispatch a chunk from ``state`` (its start and first block) and
+        return the state it runs on; ``finish`` completes it."""
+        prog = self._program(cfg, strategy, state)
+        prog.start(state, fill_budget if fill_budget is not None else (
+            cfg.chunk_fill_budget or 2 ** 30), self.rates)
+        self._active = prog
+        return prog.carry.state
 
-    # --- advance: replace each dataset's worst live point (.:494-534) ---
-    filled = state.shelves.count > 0
-    adv = state.running & filled
-    dead_p = torch.where(worst_hit, state.live_idx, -1).amax(dim=0)
-    dead_L = Lmins  # live_L[worst, d] IS the per-column minimum, bit-exactly
+    def finish(self):
+        """``(state, dead, rows)`` of the chunk ``start`` dispatched."""
+        prog, self._active = self._active, None
+        out = prog.finish()
+        self.rates = prog.rates or self.rates
+        return out
 
-    head_idx, head_L, shelves = shelves_lib.pop(state.shelves, adv)
-    upd = worst_hit & adv[None, :]
-    live_idx = torch.where(upd, head_idx[None, :], state.live_idx)
-    live_L = torch.where(upd, head_L[None, :], state.live_L)
-
-    # --- phantom-point memory (friends.py keep_phantom_points) ---
-    # under a mesh the dead set is all-gathered first (rank order is
-    # dataset order), which keeps the replicated buffer identical
-    Q = state.phantom_idx.shape[0]
-    if Q > 0:
-        cand_L = all_gather_rows(torch.where(adv, dead_L, _NEG_INF), group)
-        cand_i = all_gather_rows(torch.where(adv, dead_p, -1), group)
-        all_L = torch.cat([state.phantom_L, cand_L])
-        all_i = torch.cat([state.phantom_idx, cand_i])
-        top_L, sel = torch.topk(all_L, Q)
-        state = state.replace(phantom_idx=all_i[sel], phantom_L=top_L)
-
-    # --- streaming evidence update (multi_nested_integrator.py:105-161) ---
-    active = any_running
-    logwidth = torch.where(
-        adv, ledger_constant(K, device) + state.logVolremaining, state.logwidth)
-    wi = logwidth + dead_L
-    logZnew, Hnew = _safe_logaddexp_update(state.logZ, state.H, wi, dead_L)
-    dead = DeadChunk(
-        idx=torch.where(adv, dead_p, -1),
-        L=torch.where(adv, dead_L, _NEG_INF),
-        logwidth=logwidth,
-        running=state.running,
-    )
-    state = state.replace(
-        shelves=shelves,
-        live_idx=live_idx,
-        live_L=live_L,
-        # only the per-dataset minimum is ever replaced, so for K >= 2 the
-        # live maximum is monotone
-        Lmax=(live_L.amax(dim=0) if K == 1 else
-              torch.where(adv, torch.maximum(state.Lmax, head_L), state.Lmax)),
-        logZ=torch.where(adv, logZnew, state.logZ),
-        H=torch.where(adv, Hnew, state.H),
-        logwidth=logwidth,
-        last_logwidth=torch.where(state.running, logwidth, state.last_logwidth),
-        logVolremaining=state.logVolremaining - torch.where(adv, 1.0 / K, 0.0),
-        iteration=state.iteration + active.to(_I32),
-        stall_count=(state.stall_count if budget_out else
-                     state.stall_count + (state.running & ~filled).to(_I32)),
-    )
-    state = device_termination(state, cfg, K)
-    return (state, geom, budget_left), dead
+    def stats(self) -> dict:
+        progs = self.programs.values()
+        return dict(chunk_path=self.path,
+                    steps=dict(sum((p.steps for p in progs),
+                                   collections.Counter())),
+                    graph_replays=sum(p.replays for p in progs),
+                    status_reads=sum(p.syncs for p in progs),
+                    capture_s=sum(p.capture_s for p in progs))
 
 
 def remainder_core(live_L, logZ, H, logwidth, Lmax, nlive: int):
@@ -669,53 +1088,54 @@ def device_termination(state: EngineState, cfg: RunConfig, nlive: int):
     )
 
 
+def _fresh(state: EngineState) -> EngineState:
+    """``state`` with copies of its tensors, but for the point pile: a
+    chunk appends to the pile in place (the pile is the largest tensor of
+    the state, and the state passed in is consumed)."""
+    out = _clone_tree(state.replace(pile_u=None, pile_x=None))
+    return out.replace(pile_u=state.pile_u, pile_x=state.pile_x)
+
+
 def run_chunk(problem: Problem, state: EngineState, cfg: RunConfig,
               member_capacity: int, n_iters: int, generator, strategy=None,
               fill_budget: int | None = None, group=None, model_group=None):
     """Run up to ``n_iters`` NS iterations, stopping early once every
-    dataset has terminated (``engine.run_chunk_inner`` of the JAX package,
-    as a host loop). Returns ``(state, dead, rows)`` with the first ``rows``
-    rows of ``dead`` written. Under a mesh (``group``: the data axis,
-    ``model_group``: the model axis) ``problem`` and ``state`` are this
-    rank's shards and ``rows`` is the same on every rank.
+    dataset has terminated (``engine.run_chunk_inner`` of the JAX package),
+    as a ``ChunkProgram`` of its own: captured on a CUDA device but under a
+    mesh. Returns ``(state, dead, rows)`` with the
+    first ``rows`` rows of ``dead`` written. Under a mesh (``group``: the
+    data axis, ``model_group``: the model axis) ``problem`` and ``state``
+    are this rank's shards and ``rows`` is the same on every rank. A run
+    of many chunks keeps one ``ChunkRunner`` instead (the integrator
+    does), so that its programs are built and captured once.
     """
     require_run_config(cfg)
     if strategy is None:
         from massivedatans_tpu_torch.ns.strategies import make_strategy
 
         strategy = make_strategy(cfg)
-    geom, overflow0 = _build_geometry_from(
-        strategy, state, state.running, generator, cfg, member_capacity,
-        group=group)
-    state = state.replace(
-        member_overflow=state.member_overflow + overflow0,
-        draws_at_rebuild=state.ndraws,  # chunk-start build resets the cadence
-    )
-    budget = fill_budget if fill_budget is not None else (
-        cfg.chunk_fill_budget or 2 ** 30)
-    D = state.live_L.shape[1]
-    device = state.live_L.device
-    dead = DeadChunk(
-        idx=torch.full((n_iters, D), -1, dtype=_I32, device=device),
-        L=torch.full((n_iters, D), _NEG_INF, dtype=torch.float32, device=device),
-        logwidth=torch.zeros((n_iters, D), dtype=torch.float32, device=device),
-        running=torch.zeros((n_iters, D), dtype=torch.bool, device=device),
-    )
-    rows = 0
-    while rows < n_iters:
-        any_running = global_any(state.running, group)
-        if not bool(any_running):
-            break
-        (state, geom, budget), row = ns_iteration(
-            problem, state, cfg, member_capacity, generator, strategy, geom,
-            budget, group=group, model_group=model_group,
-            any_running=any_running)
-        dead.idx[rows] = row.idx
-        dead.L[rows] = row.L
-        dead.logwidth[rows] = row.logwidth
-        dead.running[rows] = row.running
-        rows += 1
-    return state, dead, rows
+    runner = ChunkRunner(problem, member_capacity, n_iters, generator, group,
+                         model_group)
+    runner.start(_fresh(state), cfg, strategy, fill_budget)
+    return runner.finish()
+
+
+def ns_iteration(problem: Problem, state: EngineState, cfg: RunConfig,
+                 member_capacity: int, generator, strategy=None):
+    """One joint NS iteration (reference ``__next__`` + integrator body):
+    a chunk of one iteration. Returns ``((state, geom, budget_left),
+    dead)`` with ``dead`` the iteration's row."""
+    if strategy is None:
+        from massivedatans_tpu_torch.ns.strategies import make_strategy
+
+        strategy = make_strategy(cfg)
+    runner = ChunkRunner(problem, member_capacity, 1, generator)
+    runner.start(_fresh(state), cfg, strategy)
+    carry = runner._active.carry
+    state, dead, _ = runner.finish()
+    return (state, carry.geom, int(carry.budget)), DeadChunk(
+        idx=dead.idx[0], L=dead.L[0], logwidth=dead.logwidth[0],
+        running=dead.running[0])
 
 
 def capture_tails_idx(state: EngineState):

@@ -3,9 +3,12 @@
 Counterpart of ``massivedatans_tpu/ns/integrator.py`` (reference
 ``multi_nested_integrator.py:80-175``). The per-iteration work (fill,
 advance, logZ/H update, termination) runs on the device in chunks of
-``cfg.chunk_iters`` iterations (``engine.run_chunk``); the dead rows of a
-chunk collect in device buffers and come back in one device-to-host fetch
-per chunk. The host then
+``cfg.chunk_iters`` iterations (``engine.ChunkRunner``: CUDA graph replays
+on a card); the dead rows of a chunk collect in device buffers and come
+back in one report per chunk, copied into pinned host memory behind an
+event. Up to ``1 + cfg.pipeline_lookahead`` chunks are dispatched before the
+host waits on the oldest report, so the device runs the next chunk while
+the host reads and processes it. The host then
 
 - accumulates the dead-point stream into the posterior weight record,
 - refreshes the advisory group labels (``ns/subsets.component_labels``),
@@ -30,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -67,19 +71,44 @@ class NSResult:
     stats: dict
 
 
+class PendingFetch:
+    """Device tensors on their way to the host in ONE copy: they travel as
+    one float64 buffer (exact for float32, int32, bool and the int64
+    counters, all below 2^53), copied into pinned memory without blocking
+    behind a CUDA event (on the CPU, at once). ``result()`` waits for the
+    copy and casts each back to its own dtype."""
+
+    def __init__(self, tensors):
+        self._flat = torch.cat([t.reshape(-1).to(torch.float64)
+                                for t in tensors])
+        self._layout = [(tuple(t.shape), t.dtype) for t in tensors]
+        self._event = None
+        if self._flat.device.type == "cuda":
+            self._host = torch.empty(self._flat.shape, dtype=torch.float64,
+                                     pin_memory=True)
+            self._host.copy_(self._flat, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = self._flat
+
+    def result(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        host = self._host.numpy()
+        out, o = [], 0
+        for shape, dtype in self._layout:
+            n = int(np.prod(shape, dtype=np.int64))
+            np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+            out.append(host[o:o + n].reshape(shape).astype(np_dtype))
+            o += n
+        return out
+
+
 def fetch(tensors) -> list:
-    """Bring several device tensors to the host in ONE copy: they travel
-    as one float64 buffer (exact for float32, int32, bool and the int64
-    counters, all below 2^53) and are cast back to their own dtypes."""
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
-    out, o = [], 0
-    for t in tensors:
-        n = t.numel()
-        dtype = torch.empty((), dtype=t.dtype).numpy().dtype
-        out.append(host[o:o + n].reshape(tuple(t.shape)).astype(dtype))
-        o += n
-    return out
+    """Bring several device tensors to the host in one copy, waiting for
+    it (``PendingFetch``)."""
+    return PendingFetch(tensors).result()
 
 
 def compact_pile(state: EngineState, group=None) -> EngineState:
@@ -159,6 +188,7 @@ def multi_nested_integrator(
     checkpoint_every: int = 10,
     max_chunks: Optional[int] = None,
     dispatch_target_s: Optional[float] = None,
+    eager: bool = False,
 ) -> NSResult:
     """Run the joint sampler to termination (or graceful preemption) on
     ``device``.
@@ -166,6 +196,27 @@ def multi_nested_integrator(
     ``generator`` is a ``torch.Generator`` on ``device``; by default one is
     made there and seeded from ``cfg.seed``. ``problem`` is moved to
     ``device``.
+
+    On a CUDA device the chunks run as replays of captured CUDA graphs
+    (``engine.ChunkProgram``); ``eager=True`` runs the same steps eagerly
+    instead, the card's reference for the captured path, which it equals
+    bit for bit. The CPU and a mesh always run eagerly.
+    ``stats["chunk_path"]`` says which ran, ``stats["graph_replays"]`` and
+    ``stats["host_syncs"]`` (block status reads and chunk reports) what it
+    took.
+
+    ``cfg.pipeline_lookahead``: chunks dispatched beyond the one whose report
+    the host waits on, as in the JAX package. A chunk dispatched after every
+    dataset has terminated on the device is a no-op. The eval-batch
+    escalation and the adaptive budget act on reports that lag by the
+    lookahead, and the group labels steer one chunk later. The pile is
+    compacted once its size predicted past the pipeline's drain
+    (``ps + 2 (len(pipeline) + 1) growth``, ``growth`` the largest pile
+    growth of a chunk seen) would pass capacity, or past 85 % of it: no
+    chunk is dispatched until the pipeline has drained, then the pile is
+    compacted. A checkpoint's chunk drains the pipeline too (nothing is
+    dispatched past it before its report), so the state saved is the one the
+    next chunk starts from.
 
     ``mesh``: a ``torch.distributed`` ``DeviceMesh`` (``parallel.make_mesh``)
     in each of its ranks (``parallel.spawn_ranks``), each with the whole
@@ -182,10 +233,11 @@ def multi_nested_integrator(
     after this many chunks in all, checkpoint, and return the partial
     result with ``stats["interrupted"] = True``. The state saved is the
     one the next chunk starts from (pile compacted, group labels applied),
-    so a resumed run is bit for bit the uninterrupted one, as the JAX
-    package's with ``pipeline_lookahead=0``; that holds only with
-    escalation and the adaptive budget off, since neither the escalation
-    switch nor the budget is saved and the budget follows the wall clock.
+    with the host's compaction predictor and block plan, so a resumed run
+    is bit for bit the uninterrupted one with ``pipeline_lookahead=0``, as
+    the JAX package's; that holds only with escalation and the adaptive
+    budget off, since neither the escalation switch nor the budget is
+    saved and the budget follows the wall clock.
 
     ``cfg.eval_batch_max > cfg.eval_batch``: a chunk whose fill rounds per
     iteration exceed 2.5 makes the next chunks run at the escalated batch
@@ -262,10 +314,20 @@ def multi_nested_integrator(
 
     running_all = np.ones(D, bool)  # every rank's datasets
     chunk_index = 0
+    # the compaction predictor: the pile size at the last report and the
+    # largest growth of a chunk seen (JAX package: host growth_est); the
+    # last chunk's fill rates, which plan the next chunk's blocks
+    prev_pile_size, growth_est, rates = None, 0, None
     if checkpoint_dir is not None and ckpt.has_checkpoint(checkpoint_dir):
         log.info("resuming from checkpoint %s", checkpoint_dir)
         state = ckpt.load_state(checkpoint_dir, state, generator)
-        running_all = ckpt.load_host(checkpoint_dir)["running"]
+        host = ckpt.load_host(checkpoint_dir)
+        running_all = host["running"]
+        prev_pile_size = int(host["prev_pile_size"])
+        growth_est = int(host["growth_est"])
+        saved = host["block_rates"]
+        rates = None if np.isnan(saved).any() else tuple(
+            float(r) for r in saved)
         chunk_index = int(ckpt.load_meta(checkpoint_dir)["chunk_index"])
         for c in ckpt.load_chunks(checkpoint_dir)[:chunk_index]:
             dead_u.append(c["u"][:, block])
@@ -276,6 +338,9 @@ def multi_nested_integrator(
     if mesh is not None:
         problem = sharded.shard_problem(problem, mesh)
         state = sharded.shard_state(state, mesh)
+    runner = engine_lib.ChunkRunner(problem, member_capacity, cfg.chunk_iters,
+                                    generator, group, model_group, eager=eager)
+    runner.rates = rates
     running = running_all[block]
     saved_chunks = chunk_index
     timing["init_s"] = time.time() - t0
@@ -284,30 +349,66 @@ def multi_nested_integrator(
     # the [K, D] live_idx feeds the advisory group labels; at large K*D it
     # is refreshed on a cadence (config.group_refresh_chunks)
     group_every = cfg.group_refresh_chunks or (1 if K * D <= 1 << 20 else 4)
+    lookahead = max(0, cfg.pipeline_lookahead)
+    names = ("idx", "L", "logwidth", "rows_running", "running_all",
+             "iteration", "ndraws", "pile_size", "stall_count",
+             "fill_rounds", "logZ", "rem_logZ", "live_idx")
+    pipeline = deque()  # chunks dispatched, oldest first; all but the newest done
+    dispatched = chunk_index
+    compact_due = False
     interrupted = False
-    while running_all.any():
-        t_c0 = time.time()
-        run_cfg, strategy = runs[big_active]
-        big_batch_chunks += big_active
-        state, dead, rows = engine_lib.run_chunk(
-            problem, state, run_cfg, member_capacity, cfg.chunk_iters,
-            generator, strategy, fill_budget=budget if adaptive else None,
-            group=group, model_group=model_group)
-        t_c1 = time.time()
-        with_groups = cfg.use_groups and D > 1 and chunk_index % group_every == 0
-        parts = fetch([
+
+    def checkpoints_at(n):
+        return checkpoint_dir is not None and (
+            n % checkpoint_every == 0
+            or (max_chunks is not None and n >= max_chunks))
+
+    def finish(chunk):
+        """Complete the chunk's blocks and start its report's copy."""
+        if "report" in chunk:
+            return
+        st, dead, rows = runner.finish()
+        chunk["rows"] = rows
+        chunk["report"] = PendingFetch([
             dead.idx[:rows], dead.L[:rows], dead.logwidth[:rows],
             dead.running[:rows],
-            sharded.all_gather_rows(state.running, group), state.iteration,
-            state.ndraws, state.pile_size, state.stall_count,
-            state.fill_rounds, state.logZ, state.rem_logZ,
-        ] + ([sharded.all_gather_rows(state.live_idx, group, dim=1)]
-             if with_groups else []))
+            sharded.all_gather_rows(st.running, group), st.iteration,
+            st.ndraws, st.pile_size, st.stall_count, st.fill_rounds,
+            st.logZ, st.rem_logZ,
+        ] + ([sharded.all_gather_rows(st.live_idx, group, dim=1)]
+             if chunk["groups"] else []))
+        chunk["t_run"] = time.time() - chunk["t0"]
+
+    def dispatch():
+        """Dispatch the next chunk from ``state`` (the newest chunk's state
+        with the host's changes), its start and first block."""
+        nonlocal state, dispatched, big_batch_chunks
+        if pipeline:
+            finish(pipeline[-1])
+        run_cfg, strategy = runs[big_active]
+        big_batch_chunks += big_active
+        chunk = dict(t0=time.time(), groups=(
+            cfg.use_groups and D > 1 and dispatched % group_every == 0))
+        state = runner.start(state, run_cfg, strategy,
+                             fill_budget=budget if adaptive else None)
+        dispatched += 1
+        pipeline.append(chunk)
+
+    while running_all.any() or pipeline:
+        if running_all.any() and not compact_due:
+            while (len(pipeline) < 1 + lookahead
+                   and (max_chunks is None or dispatched < max_chunks)
+                   and not (pipeline and checkpoints_at(dispatched))):
+                dispatch()
+        if not pipeline:
+            break
+        chunk = pipeline.popleft()
+        finish(chunk)
+        t_c1 = time.time()
+        parts = chunk["report"].result()
         t_c2 = time.time()
-        rep = dict(zip(
-            ("idx", "L", "logwidth", "rows_running", "running_all",
-             "iteration", "ndraws", "pile_size", "stall_count",
-             "fill_rounds", "logZ", "rem_logZ", "live_idx"), parts))
+        rows = chunk["rows"]
+        rep = dict(zip(names, parts))
         pending_idx.append(rep["idx"])
         dead_L.append(rep["L"])
         dead_w.append(np.where(rep["rows_running"], rep["logwidth"],
@@ -320,10 +421,11 @@ def multi_nested_integrator(
             if adaptive and used > 0:
                 # seconds per fill round of this chunk -> the budget that
                 # fits the target; growth damped, decrease immediate
-                want = int(dispatch_target_s * used / max(t_c2 - t_c0, 1e-4))
+                secs = chunk["t_run"] + (t_c2 - t_c1)
+                want = int(dispatch_target_s * used / max(secs, 1e-4))
                 budget = max(budget_floor,
                              min(budget_ceil, int(budget * 1.5), want))
-            if len(runs) > 1:
+            if len(runs) > 1 and rows > 0:
                 rpi = used / rows
                 if not big_active and rpi > 2.5:
                     big_active = True
@@ -348,14 +450,26 @@ def multi_nested_integrator(
             running=int(running_all.sum()),
             logZ0=float(np.logaddexp(rep["logZ"][0], rep["rem_logZ"][0])))
         ps = int(rep["pile_size"])
+        if prev_pile_size is not None and ps >= prev_pile_size:
+            growth_est = max(growth_est, ps - prev_pile_size)
+        prev_pile_size = ps
         if ps >= pile_cap:
             log.warning("point pile hit capacity (%d); accepted candidates "
                         "were dropped — raise cfg.pile_capacity", pile_cap)
-        if running_all.any() and ps > 0.85 * pile_cap:
+        # compaction must see every in-flight chunk's indices first (they
+        # reference the pre-compaction pile): stop dispatching, drain the
+        # pipeline, then compact the newest state
+        predicted_peak = ps + 2 * (len(pipeline) + 1) * max(growth_est, 1)
+        compact_due = compact_due or ps > 0.85 * pile_cap \
+            or predicted_peak > pile_cap
+        if compact_due and not pipeline and running_all.any():
             resolve_pending(state, ps)  # indices reference the old pile
             state = compact_pile(state, group)
-            ps = int(state.pile_size)
+            prev_pile_size = ps = int(state.pile_size)
+            compact_due = False
         if running_all.any() and "live_idx" in rep:
+            # labels steer the next chunk dispatched (under lookahead, a later
+            # one than the next in the pipeline)
             labels, n_groups = subsets_lib.component_labels(
                 rep["live_idx"], selected=running_all, nlive_points=K)
             state = state.replace(
@@ -365,7 +479,7 @@ def multi_nested_integrator(
         t_c3 = time.time()
         hit_max_chunks = (max_chunks is not None and chunk_index >= max_chunks
                           and running_all.any())
-        if checkpoint_dir is not None and (
+        if checkpoint_dir is not None and not pipeline and (
                 chunk_index % checkpoint_every == 0 or not running_all.any()
                 or hit_max_chunks):
             # the state the next chunk starts from; chunk files hold
@@ -374,24 +488,29 @@ def multi_nested_integrator(
             resolve_pending(state, ps)
             while saved_chunks < chunk_index:
                 if collects:
-                    chunk = {k: gather_datasets(v[saved_chunks], group,
-                                                device, 1)
-                             for k, v in dict(u=dead_u, x=dead_x, L=dead_L,
-                                              w=dead_w,
-                                              mask=dead_mask).items()}
+                    chunk_arrays = {k: gather_datasets(v[saved_chunks], group,
+                                                       device, 1)
+                                    for k, v in dict(u=dead_u, x=dead_x,
+                                                     L=dead_L, w=dead_w,
+                                                     mask=dead_mask).items()}
                 if writer:
-                    ckpt.save_chunk(checkpoint_dir, saved_chunks, chunk)
+                    ckpt.save_chunk(checkpoint_dir, saved_chunks, chunk_arrays)
                 saved_chunks += 1
             full = state
             if mesh is not None and collects:
                 full = sharded.gather_state(state, mesh)
             if writer:
+                block_rates = runner.rates or (np.nan, np.nan)
                 ckpt.save_state(
                     checkpoint_dir, full, generator,
-                    host_ctx=dict(running=running_all),
+                    host_ctx=dict(
+                        running=running_all,
+                        prev_pile_size=np.int64(ps),
+                        growth_est=np.int64(growth_est),
+                        block_rates=np.asarray(block_rates, np.float64)),
                     meta=dict(chunk_index=chunk_index, ndata=D, nlive=K,
                               iteration=int(rep["iteration"])))
-        timing["chunk_s"] += t_c1 - t_c0
+        timing["chunk_s"] += chunk["t_run"]
         timing["fetch_s"] += t_c2 - t_c1
         timing["groups_s"] += t_c3 - t_c2
         timing["checkpoint_s"] += time.time() - t_c3
@@ -464,6 +583,8 @@ def multi_nested_integrator(
             stall_count=stall_count,
             stalled_mask=stall_count > engine_lib.resolve_stall_limit(cfg),
             chunks=chunk_index,
+            **runner.stats(),
+            host_syncs=runner.stats()["status_reads"] + chunk_index,
             big_batch_chunks=big_batch_chunks,
             fill_budget_last=budget if adaptive else None,
             timing={k: round(v, 3) for k, v in timing.items()},

@@ -18,7 +18,12 @@ Each public function dispatches on the device of its tensors:
   coordinates in order, no fused multiply-add).
 
 ``count_within.launches`` and ``bootstrapped_sq_radius.launches`` count
-kernel launches (plain integers); the plain versions never touch them.
+kernel launches (plain integers); the plain versions never touch them. A
+call made while its stream is captured into a CUDA graph launches nothing:
+it adds one to ``captured`` instead, and the engine adds the launches a
+graph's capture recorded to ``launches`` at each replay of that graph
+(``ns/engine.ChunkProgram``). ``prepare_stream`` makes a stream's radius
+workspace before a capture on it.
 """
 
 from __future__ import annotations
@@ -100,12 +105,34 @@ _workspaces = {}
 def _radius_workspace(device, stream: int):
     """Two zeroed words per (device, stream) that the radius kernel merges
     its blocks through and leaves zero again (``csrc/neighbors.cu``): the
-    one fill happens here, at the first call on that stream."""
+    one fill happens here, at the first call on that stream, or in
+    ``prepare_stream``. A stream being captured must have been prepared:
+    the workspace would otherwise belong to the graph's memory pool."""
     key = (device.index, stream)
     ws = _workspaces.get(key)
     if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "bootstrapped_sq_radius captured on a stream without a "
+                "workspace: call neighbors.prepare_stream before capturing")
         ws = _workspaces[key] = torch.zeros(2, dtype=torch.int32, device=device)
     return ws
+
+
+def prepare_stream(device, stream: int):
+    """Load the kernel library (building it if needed) and make the radius
+    workspace of the raw CUDA ``stream`` on ``device``, outside any
+    capture: a capture on that stream then allocates nothing outside its
+    graph's pool."""
+    _build.load()
+    _radius_workspace(torch.device(device), stream)
+
+
+def _count_launch(fn):
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
 
 
 def count_within(members, member_mask, points, radius):
@@ -136,11 +163,12 @@ def count_within(members, member_mask, points, radius):
     )
     if rc != 0:
         raise RuntimeError(f"count_within kernel launch failed: cudaError {rc}")
-    count_within.launches += 1
+    _count_launch(count_within)
     return out
 
 
 count_within.launches = 0
+count_within.captured = 0
 
 
 def bootstrapped_sq_radius(w, member_mask, inbag):
@@ -169,8 +197,11 @@ def bootstrapped_sq_radius(w, member_mask, inbag):
     if rc != 0:
         raise RuntimeError(
             f"bootstrapped_sq_radius kernel launch failed: cudaError {rc}")
-    bootstrapped_sq_radius.launches += 1
+    _count_launch(bootstrapped_sq_radius)
     return out
 
 
 bootstrapped_sq_radius.launches = 0
+bootstrapped_sq_radius.captured = 0
+# the wrappers whose launches a captured graph's replay adds
+KERNELS = (count_within, bootstrapped_sq_radius)

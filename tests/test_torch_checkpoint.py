@@ -3,11 +3,12 @@
 The bars of the JAX package's tests/test_checkpoint.py and
 tests/test_checkpoint_midrun.py, on the same analytic problems and
 ``RunConfig``: a run preempted mid-flight and resumed is bit for bit the
-uninterrupted run (the port has no pipeline lookahead, so the JAX
-package's ``pipeline_lookahead=0`` contract), a checkpoint of a finished
-run resumes straight to the same result, and checkpoints the port cannot
-resume exactly (the JAX package's, another format version, another nlive,
-a generator on the other device type) are refused by name.
+uninterrupted run (at ``pipeline_lookahead=0``, the JAX package's
+contract, set here as in its tests/test_checkpoint_midrun.py:27), a
+checkpoint of a finished run resumes straight to the same result, and
+checkpoints the port cannot resume exactly (the JAX package's, another
+format version, another nlive, a generator on the other device type) are
+refused by name.
 """
 
 import dataclasses
@@ -39,6 +40,7 @@ CFG = RunConfig(
     shelf_capacity=4,
     chunk_iters=20,
     max_fill_rounds=256,
+    pipeline_lookahead=0,  # bit-identity contract (integrator docstring)
 )
 # keep every dataset running well past the preemption
 MIDRUN = dataclasses.replace(CFG, min_samples=120)

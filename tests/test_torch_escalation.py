@@ -53,13 +53,13 @@ def _fit(cfg, **kw):
 @pytest.mark.parametrize("constrainer", ["MLFRIENDS", "SLICE"])
 def test_escalation_engages_and_keeps_evidences(constrainer, monkeypatch):
     batches = []  # the eval batch each chunk ran at, and its strategy's
-    run_chunk = engine.run_chunk
+    start = engine.ChunkRunner.start
 
-    def spy(problem, state, cfg, *a, **k):
+    def spy(self, state, cfg, *a, **k):
         batches.append(cfg.eval_batch)
-        return run_chunk(problem, state, cfg, *a, **k)
+        return start(self, state, cfg, *a, **k)
 
-    monkeypatch.setattr(engine, "run_chunk", spy)
+    monkeypatch.setattr(engine.ChunkRunner, "start", spy)
     r = _fit(RunConfig(eval_batch_max=64, constrainer=constrainer, **BASE))
     assert r.stats["big_batch_chunks"] > 0, r.stats
     assert batches.count(64) == r.stats["big_batch_chunks"]

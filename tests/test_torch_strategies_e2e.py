@@ -180,9 +180,11 @@ def test_friends_options_logZ(kw):
 
 # --- MLFRIENDS trajectory guard --------------------------------------------------
 
-# iterations, fill rounds and evaluations of this fit before the fill loop
-# carried strategy state (the same numbers on the CPU, one thread)
-GUARD = {3: (150, 41, 2724), 7: (200, 54, 3534)}
+# iterations, fill rounds and evaluations of this fit (the same numbers on
+# the CPU, one thread). The chunk program's steps that are off still
+# spend their random draws, so a change to its schedule
+# (ns/engine.ChunkProgram.plan) moves them
+GUARD = {3: (200, 53, 3492), 7: (200, 54, 3538)}
 
 
 @pytest.mark.parametrize("seed", sorted(GUARD))

@@ -3,16 +3,18 @@
     python3 tools/torch_ops_per_round.py                 # every strategy, CPU
     python3 tools/torch_ops_per_round.py SLICE GALILEAN
 
-The port's fill loop is bound by the host issuing small operations one by
-one, so the operations per round set its cost per round. This fits nothing:
-it builds the first geometry of the default ``RunConfig`` fit of 100 horns
-spectra and runs up to ``ROUNDS`` fill rounds under a ``TorchDispatchMode`` that
-counts every operation the dispatcher sees, split into the engine's own,
-the likelihood's (prior transform and log-likelihood) and the strategy's
+A fill round's operations are what the port's eager path dispatches from the
+host one by one, and what a captured round graph holds on the card. This
+fits nothing: it makes the chunk program (``ns/engine.ChunkProgram``) of
+the default ``RunConfig`` fit of 100 horns spectra, opens an iteration's
+fill (its ``start`` and ``begin`` steps) and runs ``ROUNDS`` region rounds
+(the ``region`` step) under a ``TorchDispatchMode`` that counts every
+operation the dispatcher sees, split into the engine's own, the
+likelihood's (prior transform and log-likelihood) and the strategy's
 (``propose``, ``observe``, ``refresh``), and into views and scalars (no
-kernel) and the rest. It prints one JSON line per strategy. These are
-counts on the CPU, not times; a card runs the same Python calls, though a
-composite operation may dispatch other internals there.
+kernel) and the rest. It prints one JSON line per strategy, per round
+step. These are counts on the CPU, not times; a card runs the same Python
+calls, though a composite operation may dispatch other internals there.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ def count_round_ops(name: str, rounds: int, ndata: int = 100) -> dict:
                                      device="cpu")
     problem.loglike = tagged(problem.loglike, "likelihood")
     problem.transform_batch = tagged(problem.transform_batch, "likelihood")
-    cfg = RunConfig(constrainer=name, max_fill_rounds=rounds)
+    cfg = RunConfig(constrainer=name)
     s = strategies.make_strategy(cfg)
     s = strategies.Strategy(
         s.build, tagged(s.propose, "strategy"), s.init_chains,
@@ -73,14 +75,17 @@ def count_round_ops(name: str, rounds: int, ndata: int = 100) -> dict:
     gen = torch.Generator().manual_seed(0)
     state = engine.init_state(problem, gen, cfg)
     mc = cfg.resolve_member_capacity(ndata)
-    geom, _ = engine._build_geometry_from(s, state, state.running, gen, cfg, mc)
-    sstate = s.init_chains(geom, gen)
+    prog = engine.ChunkProgram(problem, cfg, s, mc, 1, gen, state)
+    prog._step("start")
+    prog.carry.budget.fill_(rounds)
+    prog._step("begin")
     with Count():
-        out, _ = engine._fill_shelves(problem, state, s, geom, sstate, cfg, mc,
-                                      gen)
-    n = int(out.fill_rounds)
+        for _ in range(rounds):
+            prog._step("region")
+    n = rounds
     rec = {k: v / n for k, v in sorted(counts.items())}
     rec.update(constrainer=name, rounds=n,
+               rounds_on=int(prog.carry.state.fill_rounds),
                total=sum(counts.values()) / n,
                kernels=sum(v for k, v in counts.items()
                            if k.endswith("_ops")) / n)
