@@ -39,10 +39,12 @@ version on the card:
   horns fit of phase 4, and with HMC cut to 150 / 150 iterations on the
   MUSE fit of phase 6, both held in memory;
 - sharded: the horns fit of phase 4 on a dataset mesh
-  (``parallel/``), each rank a process of its own: one rank under NCCL,
-  then two ranks sharing the card under gloo (staged through the host),
-  and NCCL across the cards where there are two or more; then the
-  model-parallel likelihoods on a (data 1, model 2) mesh on the card.
+  (``parallel/``), each rank a process of its own: one rank under NCCL
+  (its chunks captured as CUDA graphs with the collectives inside), then
+  two ranks sharing the card under gloo (staged through the host, the
+  chunks eager), and NCCL across the cards where there are two or more
+  (captured); then the model-parallel likelihoods on a (data 1, model 2)
+  mesh on the card.
 
 Phases, each of which raises on failure:
 
@@ -126,23 +128,28 @@ Phases, each of which raises on failure:
    second and the mean wall of a step of the fit loop;
 9. the sharded path (``sharded_phase``): each rank sets its launch and
    collective counters to 0, runs the horns fit of phase 4 on the mesh and
-   reads them. At one NCCL rank every collective is an identity: logZ,
+   reads them (a replayed graph counts the collectives and launches its
+   capture recorded). Under NCCL the chunks must run captured
+   (``chunk_path`` "graph", graph replays in every rank), under gloo
+   eagerly. At one NCCL rank every collective is an identity: logZ,
    logZerr, L, u, w and mask (by SHA-256), iterations, evaluations, fill
-   rounds and both kernels' launches must be phase 4's bit for bit. Two
-   ranks on the card (gloo) and, with two or more cards, NCCL across
-   min(cards, 4) of them must hold phase 4's quadrature bar; in every run
-   each rank must launch both kernels, ``count_within`` once per region
-   round. Then two ranks on the card (data 1 x model 2, gloo) evaluate
-   the gaussline and MUSE likelihoods of ``MP_BATCH`` candidates (phase
+   rounds and both kernels' launches must be phase 4's captured fit's bit
+   for bit. Two ranks on the card (gloo) and, with two or more cards, NCCL
+   across min(cards, 4) of them must hold phase 4's quadrature bar; in
+   every run each rank must launch both kernels, ``count_within`` once per
+   region or focus round it ran. Then two ranks on the card (data 1 x
+   model 2, gloo) evaluate the gaussline and MUSE likelihoods of
+   ``MP_BATCH`` candidates (phase
    4's spectra, phase 6's cube): the gaussline model-parallel one is held
    to the single-device one at the JAX test's rtol and atol; the MUSE
    single-device and model-parallel ones to a float64 witness from the
    same templates, spectra and candidates at the JAX test's rtol and atol
    plus ``MUSE_CANCEL`` * yy, which a TF32 contraction of the same
    candidates must fail (``_against``). Print one JSON line
-   ``{"sharded": [...]}``: per run its world, backend, walls, evaluations,
-   fill rounds, collective calls per fill round, wall per round, launches
-   per rank and its bars;
+   ``{"sharded": [...]}``: per run its world, backend, chunk path, graph
+   replays and host syncs per iteration, walls, evaluations, fill rounds,
+   collective calls per fill round, wall per round, launches per rank and
+   its bars;
 10. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
@@ -153,6 +160,7 @@ package is missing.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import hashlib
 import json
@@ -613,18 +621,21 @@ def _profiled(fn, captures=True, host=True):
     return prof.key_averages()
 
 
-def _count_rounds(region):
-    """Wrap ``region.sample_region`` (which the strategies call once per
-    region proposal round) with a counter; returns the counter list."""
-    rounds = []
-    sample = region.sample_region
+def _count_steps(engine):
+    """Wrap ``engine.ChunkProgram._launch`` with counters of the chunk
+    steps run, by name, and of those among them replayed from a captured
+    graph; returns the two counters. Under a mesh every rank counts its
+    own (the result, with its stats, is rank 0's only)."""
+    run, replayed = collections.Counter(), collections.Counter()
+    launch = engine.ChunkProgram._launch
 
-    def counted(*a, **k):
-        rounds.append(1)
-        return sample(*a, **k)
+    def counted(self, name):
+        run[name] += 1
+        replayed[name] += name in self.graphs
+        return launch(self, name)
 
-    region.sample_region = counted
-    return rounds
+    engine.ChunkProgram._launch = counted
+    return run, replayed
 
 
 def _build_all(_build):
@@ -1365,22 +1376,39 @@ def _sha(a):
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-def _sharded_fit_rank(rank, data, cfg):
+def _fit_digest(res):
+    """What the bitwise bars hold of a fit: logZ, logZerr, iterations,
+    evaluations, fill rounds and the L, u, w and mask records by
+    SHA-256."""
+    return dict(logZ=res.logZ, logZerr=res.logZerr, niter=res.niterations,
+                ndraws=res.ndraws, fill_rounds=res.stats["fill_rounds"],
+                **{f"sha_{k}": _sha(getattr(res, k))
+                   for k in ("L", "u", "w", "mask")})
+
+
+def _bitwise(a, b):
+    """Key by key, whether two ``_fit_digest``s are equal bit for bit."""
+    return {k: bool(np.array_equal(a[k], b[k])) for k in a}
+
+
+def _sharded_fit_rank(rank, data, cfg, model_parallel=1, eager=False):
     """One rank of a sharded horns fit: counters to 0, the fit on the
-    mesh, counters read. Returns the rank's record (and, on rank 0, the
-    result's numbers and hashes)."""
+    mesh (``model_parallel`` ranks on the spectral axis; ``eager``: the
+    steps run eagerly), counters read. Returns the rank's record (and, on
+    rank 0, the result's digest and stats)."""
     from massivedatans_tpu_torch.cli import run_fit
-    from massivedatans_tpu_torch.ns import region
+    from massivedatans_tpu_torch.ns import engine
     from massivedatans_tpu_torch.ops import neighbors
     from massivedatans_tpu_torch.parallel import sharded
 
     t0 = time.perf_counter()
-    mesh = sharded.make_mesh(rank.world, 1, rank.mesh_device_type)
-    # the first collective makes the communicator
+    mesh = sharded.make_mesh(rank.world, model_parallel,
+                             rank.mesh_device_type)
+    # the first collective (a gloo group makes its connections here)
     sharded.global_any(torch.ones(1, device=rank.device),
                        sharded.data_axis(mesh)[0])
     setup_s = time.perf_counter() - t0
-    rounds = _count_rounds(region)
+    steps, replayed = _count_steps(engine)
     neighbors.count_within.launches = 0
     neighbors.bootstrapped_sq_radius.launches = 0
     for k in sharded.CALLS:
@@ -1388,21 +1416,18 @@ def _sharded_fit_rank(rank, data, cfg):
     _sync_on(rank.device)
     t0 = time.perf_counter()
     res = run_fit(data["x"], data["y"], cfg, rank.device,
-                  noise_level=data["noise_level"], mesh=mesh)
+                  noise_level=data["noise_level"], mesh=mesh, eager=eager)
     _sync_on(rank.device)
     rec = dict(
         wall_s=time.perf_counter() - t0, setup_s=setup_s,
-        calls=dict(sharded.CALLS),
+        calls=dict(sharded.CALLS), graph_replays=sum(replayed.values()),
         launches=dict(count_within=neighbors.count_within.launches,
                       bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
-                      region_rounds=len(rounds)))
-    if rank.rank == 0:  # the other ranks return no result
-        rec.update(timing=res.stats["timing"], logZ=res.logZ,
-                   logZerr=res.logZerr, niter=res.niterations,
-                   ndraws=res.ndraws, fill_rounds=res.stats["fill_rounds"],
+                      region_rounds=steps["region"] + steps["focus"]))
+    if res is not None:  # rank 0; the other ranks return no result
+        rec.update(timing=res.stats["timing"], digest=_fit_digest(res),
                    member_overflow=res.stats["member_overflow"],
-                   sha={k: _sha(getattr(res, k)) for k in ("L", "u", "w",
-                                                          "mask")})
+                   **path_stats(res))
     return rec
 
 
@@ -1487,32 +1512,42 @@ def _mp_likelihood_rank(rank, data, cube, tpl):
 
 
 def sharded_fit(world, backend, data, cfg, single, single_launches,
-                single_wall, quad):
+                single_wall, quad, model_parallel=1, eager=False):
     """The horns fit of ``data`` on a mesh of ``world`` ranks, each on a
-    card (``backend``), held against the single-device fit ``single``
-    (its launches and wall beside): bit for bit at one rank, the
-    quadrature bar ``quad`` always, both kernels on every rank. Prints
-    and returns its record."""
+    card (``backend``; ``model_parallel`` ranks on the spectral axis;
+    ``eager``: the steps run eagerly), held against the single-device fit
+    ``single`` (its launches and wall beside): bit for bit at one rank,
+    the quadrature bar ``quad`` always, both kernels on every rank. The
+    chunk path must be the one the groups allow: captured under NCCL
+    (graph replays in every rank), eager under gloo or ``eager``. Prints
+    and returns its record; ``rec["ranks"]`` holds every rank's (rank 0's
+    with the result's digest), which the record printed leaves out."""
     from massivedatans_tpu_torch.parallel import spawn_ranks
 
     nq = len(quad)
     t0 = time.perf_counter()
     ranks = spawn_ranks(_sharded_fit_rank, world, backend, DEVICE,
-                        SHARDED_TIMEOUT_S, data, cfg)
+                        SHARDED_TIMEOUT_S, data, cfg, model_parallel, eager)
     spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
-    dq = np.abs(r0["logZ"][:nq] - quad)
-    within = int((dq < 3 * r0["logZerr"][:nq] + 0.5).sum())
-    rounds = r0["fill_rounds"]
+    d0 = r0["digest"]
+    dq = np.abs(d0["logZ"][:nq] - quad)
+    within = int((dq < 3 * d0["logZerr"][:nq] + 0.5).sum())
+    rounds, niter = d0["fill_rounds"], d0["niter"]
     rec = dict(
         fit=f"horns ndata={data['y'].shape[1]} nlive={cfg.nlive_points}",
-        world=world, backend=backend,
+        world=world, backend=backend, model_parallel=model_parallel,
         ranks_per_card=(-(-world // max(1, torch.cuda.device_count()))
                         if backend == "gloo" else 1),
+        chunk_path=r0["chunk_path"],
+        graph_replays_ranks=[r["graph_replays"] for r in ranks],
+        graph_replays_per_iter=r0["graph_replays_per_iter"],
+        host_syncs_per_iter=r0["host_syncs_per_iter"],
+        capture_s=r0["capture_s"],
         wall_s=r0["wall_s"], wall_s_ranks=[r["wall_s"] for r in ranks],
         setup_s=r0["setup_s"], spawn_s=spawn_s,
-        wall_s_single=single_wall, niter=r0["niter"],
-        niter_single=single.niterations, ndraws=r0["ndraws"],
+        wall_s_single=single_wall, niter=niter,
+        niter_single=single.niterations, ndraws=d0["ndraws"],
         ndraws_single=single.ndraws, fill_rounds=rounds,
         fill_rounds_single=single.stats["fill_rounds"],
         all_reduce_per_round=r0["calls"]["all_reduce"] / rounds,
@@ -1524,28 +1559,42 @@ def sharded_fit(world, backend, data, cfg, single, single_launches,
         member_overflow=r0["member_overflow"], timing=r0["timing"],
         quad_within=within, quad_held=nq)
     if world == 1:
-        rec["bitwise"] = dict(
-            logZ=bool(np.array_equal(r0["logZ"], single.logZ)),
-            logZerr=bool(np.array_equal(r0["logZerr"], single.logZerr)),
-            **{k: r0["sha"][k] == _sha(getattr(single, k))
-               for k in r0["sha"]},
-            counts=(r0["niter"], r0["ndraws"], rounds) == (
-                single.niterations, single.ndraws,
-                single.stats["fill_rounds"]),
+        rec["bitwise"] = _bitwise(d0, _fit_digest(single)) | dict(
             launches=r0["launches"] == single_launches)
     else:
-        dz = np.abs(r0["logZ"] - single.logZ)
+        dz = np.abs(d0["logZ"] - single.logZ)
         rec.update(max_abs_dlogZ_vs_single=float(dz.max()),
                    datasets_bitwise_vs_single=int((dz == 0).sum()))
     print(json.dumps({k: v for k, v in rec.items() if k != "timing"}))
+    rec["ranks"] = ranks
+    captured = backend == "nccl" and not eager
+    assert r0["chunk_path"] == ("graph" if captured else "eager"), r0
     for r in ranks:  # every rank ran both kernels, one count per round
+        assert (r["graph_replays"] > 0) == captured, r["graph_replays"]
         c = r["launches"]
         assert c["count_within"] > 0 and c["bootstrapped_sq_radius"] > 0, c
         assert c["count_within"] == c["region_rounds"], c
-    assert np.isfinite(r0["logZ"]).all() and (r0["logZerr"] > 0).all()
+    assert np.isfinite(d0["logZ"]).all() and (d0["logZerr"] > 0).all()
     assert within >= int(np.ceil(0.95 * nq)), (world, backend, within)
     if world == 1:
         assert all(rec["bitwise"].values()), rec["bitwise"]
+    return rec
+
+
+def hold_paths(graph, eager):
+    """Two ``sharded_fit`` records of one mesh, captured and eager, held
+    bit for bit: the result's digest, and in every rank the kernels'
+    launches and the collective calls. Prints and returns the record."""
+    ranks = list(zip(graph["ranks"], eager["ranks"], strict=True))
+    rec = dict(world=graph["world"], model_parallel=graph["model_parallel"],
+               wall_s_graph=graph["wall_s"], wall_s_eager=eager["wall_s"],
+               bitwise=_bitwise(graph["ranks"][0]["digest"],
+                                eager["ranks"][0]["digest"]) | dict(
+                   launches=all(g["launches"] == e["launches"]
+                                for g, e in ranks),
+                   calls=all(g["calls"] == e["calls"] for g, e in ranks)))
+    print(json.dumps({"paths_sharded": rec}))
+    assert all(rec["bitwise"].values()), rec
     return rec
 
 
@@ -1560,6 +1609,8 @@ def sharded_phase(data, cfg, single, single_launches, single_wall, quad,
         runs.append((min(cards, 4), "nccl"))
     recs = [sharded_fit(world, backend, data, cfg, single, single_launches,
                         single_wall, quad) for world, backend in runs]
+    for r in recs:  # every rank's own records stay out of the smoke's line
+        r.pop("ranks")
     cube, tpl, _ = fixture
     t0 = time.perf_counter()
     mp = spawn_ranks(_mp_likelihood_rank, 2, "gloo", DEVICE,

@@ -21,9 +21,9 @@ one fill round of each kind, an iteration's end) whose control is held in
 device flags, each step a no-op on the state where its flag is off. On a
 CUDA device every step is captured once as a CUDA graph and the host
 replays a schedule of them in blocks, reading one status copy per block;
-on the CPU, under a mesh and on request the same steps run eagerly, with
-the same operations in the same order. Random draws come from an explicit
-``torch.Generator``, registered with every graph.
+on the CPU, under a gloo mesh and on request the same steps run eagerly,
+with the same operations in the same order. Random draws come from an
+explicit ``torch.Generator``, registered with every graph.
 
 Under a dataset mesh (``parallel/sharded.py``) each rank holds a block of
 the datasets and passes its data-axis process ``group`` (and, with the
@@ -33,7 +33,13 @@ chunk loop conditions, the rebuild cadence, the strategy and pile votes,
 the member set, the phantom candidates, the iteration counter) is taken
 over the group, as the JAX package's ``axis_name`` paths do. Every random
 draw has a shape that does not depend on the datasets, so the ranks'
-generators stay in step. ``group=None`` is the single-device path.
+generators stay in step. ``group=None`` is the single-device path. With
+NCCL groups the steps are captured as on one device, each with its
+collectives inside its graph (the JAX package's ``shard_map`` of the
+chunk inside one ``jit``): every step issues the same collectives in the
+same order whatever the state (its branches are on the configuration
+only), every rank reads the same global status, plans the same blocks
+and so replays the same graphs in the same order.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import math
 import time
 
 import torch
+import torch.distributed as dist
 
 from massivedatans_tpu_torch.config import RunConfig, require_run_config
 from massivedatans_tpu_torch.models.base import Problem
@@ -51,10 +58,13 @@ from massivedatans_tpu_torch.ns import shelves as shelves_lib
 from massivedatans_tpu_torch.ns.region import Region, ball_offsets, uniform_choice
 from massivedatans_tpu_torch.ns.shelves import Shelves
 from massivedatans_tpu_torch.parallel.sharded import (
+    CALLS,
     all_gather_rows,
     axis_size,
+    can_capture,
     global_any,
     global_or_rows,
+    group_timeout_s,
 )
 
 _NEG_INF = -torch.inf
@@ -480,9 +490,13 @@ class ChunkProgram:
     With ``capture``, each step is captured once as a CUDA graph
     (``torch.cuda.CUDAGraph``, the run's generator registered with it)
     and the blocks are graph replays; without, the same step functions run
-    eagerly: on the CPU, under a mesh (whose gloo collectives cannot be
-    captured), and as the card's reference. Both dispatch the same operations
-    in the same order, so they give the same state bit for bit.
+    eagerly: on the CPU, under a gloo mesh (whose collectives stage
+    through host memory and cannot be captured), and as the card's
+    reference. Both dispatch the same operations in the same order, so
+    they give the same state bit for bit. Under an NCCL mesh a captured
+    step holds its collectives; no process group watches them, so the
+    host waits for each block's status under the groups' timeout
+    (``wait_polled``) and a rank out of step raises ``TimeoutError``.
     """
 
     def __init__(self, problem: Problem, cfg: RunConfig, strategy,
@@ -499,12 +513,19 @@ class ChunkProgram:
         self.carry = self._make_carry(state)
         self.col_capable = (cfg.use_column_focus and axis_size(group) == 1
                             and isinstance(self.carry.geom, Region))
-        self.graphs, self.tallies = {}, {}
+        # per captured step: its graph, the kernel launches and the
+        # collective calls (by kind) that one replay makes
+        self.graphs, self.tallies, self.call_tallies = {}, {}, {}
         self.steps = collections.Counter()  # steps run, by name
         self.replays = self.syncs = 0
         self.capture_s = 0.0
         self.rates = None
         self._pinned = self._event = None
+        groups = [g for g in (group, model_group) if g is not None]
+        # the status read's deadline under a mesh (None: wait as long as
+        # the block takes)
+        self.timeout_s = (min(group_timeout_s(g) for g in groups)
+                          if groups else None)
         if capture:
             self._capture()
 
@@ -549,9 +570,13 @@ class ChunkProgram:
     def _capture(self):
         """Capture every step this configuration's schedule uses, into one
         memory pool, on a stream of its own. The kernels' library is
-        loaded, the radius workspace of that stream made and the cuBLAS
-        and cuSOLVER handles initialised before, so nothing is allocated
-        outside the pool or created while capturing. A failure raises."""
+        loaded, the radius workspace of that stream made, the cuBLAS and
+        cuSOLVER handles initialised and, under a mesh, each group's NCCL
+        communicator used once before, and no eager work is left pending,
+        so nothing is allocated outside the pool or created while
+        capturing. Under a mesh the capture is thread-local: the process
+        group's watchdog thread queries its events meanwhile. A failure
+        raises; nothing falls back to the eager path."""
         from massivedatans_tpu_torch.ops import neighbors as kernels
 
         t0 = time.perf_counter()
@@ -561,16 +586,26 @@ class ChunkProgram:
             eye = torch.eye(3, device=self.device)
             torch.linalg.cholesky_ex(eye @ eye)
             torch.linalg.solve_triangular(eye, eye[None], upper=False)
-        stream.synchronize()
+            for group in (self.group, self.model_group):
+                if group is not None:  # makes its communicator, if none yet
+                    dist.all_reduce(torch.zeros(1, device=self.device),
+                                    group=group)
+        torch.cuda.synchronize(self.device)
+        mode = "global" if self.timeout_s is None else "thread_local"
         pool = torch.cuda.graph_pool_handle()
         for name in ("start", "begin", "end", *self.kinds()):
             graph = torch.cuda.CUDAGraph()
             graph.register_generator_state(self.generator)
             before = [fn.captured for fn in kernels.KERNELS]
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
+            calls = dict(CALLS)
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode=mode):
                 self._step(name)
             self.tallies[name] = [fn.captured - b for fn, b in
                                   zip(kernels.KERNELS, before)]
+            # a capture issues no collective: its calls count per replay
+            self.call_tallies[name] = {k: CALLS[k] - calls[k] for k in CALLS}
+            CALLS.update(calls)
             self.graphs[name] = graph
         self.capture_s = time.perf_counter() - t0
 
@@ -883,13 +918,17 @@ class ChunkProgram:
 
         graph.replay()
         self.replays += 1
-        # a replay launches the kernels its capture recorded
+        # a replay launches the kernels and issues the collectives its
+        # capture recorded
         for fn, n in zip(kernels.KERNELS, self.tallies[name]):
             fn.launches += n
+        for kind, n in self.call_tallies[name].items():
+            CALLS[kind] += n
 
     def _read_status(self):
         """The host's one read of a block: the status the last ``end``
-        step wrote, copied into pinned memory behind an event."""
+        step wrote, copied into pinned memory behind an event; under a
+        mesh, waited for within the groups' timeout."""
         self.syncs += 1
         status = self.carry.status
         if status.device.type != "cuda":
@@ -900,7 +939,12 @@ class ChunkProgram:
             self._event = torch.cuda.Event()
         self._pinned.copy_(status, non_blocking=True)
         self._event.record()
-        self._event.synchronize()
+        if self.timeout_s is None:
+            self._event.synchronize()
+        else:
+            wait_polled(self._event.query, self.timeout_s,
+                        f"rank {dist.get_rank()}: a chunk block's status "
+                        "(a rank out of step?)")
         return self._pinned.tolist()
 
     def start(self, state: EngineState, fill_budget: int, rates):
@@ -959,8 +1003,9 @@ class ChunkRunner:
     (the first program's carry state), so switching between them copies
     nothing.
 
-    On a CUDA device, without a mesh and unless ``eager``, every program
-    is captured (``path == "graph"``); otherwise its steps run eagerly
+    On a CUDA device, without a mesh or on NCCL groups, and unless
+    ``eager``, every program is captured (``path == "graph"``); otherwise
+    (the CPU, gloo groups, ``eager``) its steps run eagerly
     (``path == "eager"``). ``rates`` are the last chunk's fill rates, from
     which the next chunk's first block plan follows (``ChunkProgram.plan``;
     a checkpoint keeps them, so that a resumed run replays the same plan).
@@ -972,7 +1017,7 @@ class ChunkRunner:
         self.n_iters, self.generator = n_iters, generator
         self.group, self.model_group = group, model_group
         self.capture = (not eager and generator.device.type == "cuda"
-                        and group is None and model_group is None)
+                        and can_capture(group) and can_capture(model_group))
         self.programs = {}
         self.rates = None
         self._active = None
@@ -1018,6 +1063,17 @@ class ChunkRunner:
                     graph_replays=sum(p.replays for p in progs),
                     status_reads=sum(p.syncs for p in progs),
                     capture_s=sum(p.capture_s for p in progs))
+
+
+def wait_polled(done, timeout_s: float, what: str) -> None:
+    """Return once ``done()`` is true, polling it and yielding the CPU in
+    between; raise ``TimeoutError`` naming ``what`` once ``timeout_s``
+    seconds have passed without it."""
+    deadline = time.monotonic() + timeout_s
+    while not done():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what}: not done after {timeout_s:g} s")
+        time.sleep(0)
 
 
 def remainder_core(live_L, logZ, H, logwidth, Lmax, nlive: int):
@@ -1101,8 +1157,8 @@ def run_chunk(problem: Problem, state: EngineState, cfg: RunConfig,
               fill_budget: int | None = None, group=None, model_group=None):
     """Run up to ``n_iters`` NS iterations, stopping early once every
     dataset has terminated (``engine.run_chunk_inner`` of the JAX package),
-    as a ``ChunkProgram`` of its own: captured on a CUDA device but under a
-    mesh. Returns ``(state, dead, rows)`` with the
+    as a ``ChunkProgram`` of its own: captured on a CUDA device unless a
+    mesh group is gloo. Returns ``(state, dead, rows)`` with the
     first ``rows`` rows of ``dead`` written. Under a mesh (``group``: the
     data axis, ``model_group``: the model axis) ``problem`` and ``state``
     are this rank's shards and ``rows`` is the same on every rank. A run

@@ -26,6 +26,11 @@ the all-gathered live points, so every rank holds the same labels. The
 dead-point ledger and the tails stay per rank until the end, where the
 result is gathered to rank 0 in dataset order; a checkpoint holds the
 state gathered to rank 0, written by it in the single-device format.
+With NCCL groups the chunks run captured, as on one device, and the
+collectives the host issues between chunks (the report's gathers, the
+compaction's vote, the checkpoint's and the result's gathers) follow the
+chunk's replays on the stream in one order on every rank, since every
+decision that issues them rests on values every rank holds alike.
 """
 
 from __future__ import annotations
@@ -198,10 +203,12 @@ def multi_nested_integrator(
     ``device``.
 
     On a CUDA device the chunks run as replays of captured CUDA graphs
-    (``engine.ChunkProgram``); ``eager=True`` runs the same steps eagerly
-    instead, the card's reference for the captured path, which it equals
-    bit for bit. The CPU and a mesh always run eagerly.
-    ``stats["chunk_path"]`` says which ran, ``stats["graph_replays"]`` and
+    (``engine.ChunkProgram``), on one device and on a mesh of NCCL groups
+    alike (each rank replays its own graphs, collectives inside);
+    ``eager=True`` runs the same steps eagerly instead, the card's
+    reference for the captured path, which it equals bit for bit. The CPU
+    and a gloo mesh always run eagerly. ``stats["chunk_path"]`` says
+    which ran (on rank 0 under a mesh), ``stats["graph_replays"]`` and
     ``stats["host_syncs"]`` (block status reads and chunk reports) what it
     took.
 

@@ -11,7 +11,9 @@ The backend is an explicit argument and nothing switches it:
 
 - ``nccl`` with ``device_type="cuda"``: one card per rank (rank r on
   ``cuda:r``); NCCL refuses two ranks on one card, so a world larger than
-  the card count raises;
+  the card count raises. The process group is bound to the rank's card,
+  so its communicator is made at once rather than at the first collective
+  (which may be inside a CUDA graph capture, where none can be made);
 - ``gloo`` with ``device_type="cpu"``: ranks compute on the CPU;
 - ``gloo`` with ``device_type="cuda"``: ranks compute on the cards (rank r
   on ``cuda:r % count``, so several ranks may share one card) and every
@@ -19,8 +21,14 @@ The backend is an explicit argument and nothing switches it:
   (``sharded._staged``).
 
 Every collective runs under ``timeout_s``: a rank that drifts out of step
-fails the run instead of hanging it. A rank that raises ends the run and
-``spawn_ranks`` raises its error; the other ranks are stopped.
+fails the run instead of hanging it. An eager collective is watched by
+the process group itself; collectives replayed inside CUDA graphs are
+not, so the engine waits for each replayed block's status under the same
+timeout and raises ``TimeoutError`` when it passes
+(``engine.ChunkProgram``). A rank that raises ends the run and
+``spawn_ranks`` raises its error; the other ranks are stopped. Under
+NCCL the failed rank's process ends at once, without tearing its process
+group down: that would wait for collectives no peer will join.
 """
 
 from __future__ import annotations
@@ -29,7 +37,9 @@ import dataclasses
 import datetime
 import os
 import pickle
+import sys
 import tempfile
+import traceback
 
 import torch
 import torch.distributed as dist
@@ -85,10 +95,19 @@ def spawn_ranks(fn, world: int, backend: str, device_type: str,
     name) and so is each rank's return value back."""
     _check_world(world, backend, device_type)
     with tempfile.TemporaryDirectory(prefix="mdt_ranks_") as tmp:
-        torch.multiprocessing.spawn(
-            _rank_main, args=(fn, world, backend, device_type, timeout_s,
-                              tmp, args),
-            nprocs=world, join=True)
+        try:
+            torch.multiprocessing.spawn(
+                _rank_main, args=(fn, world, backend, device_type, timeout_s,
+                                  tmp, args),
+                nprocs=world, join=True)
+        except torch.multiprocessing.ProcessExitedException:
+            failed = [r for r in range(world) if os.path.exists(
+                os.path.join(tmp, f"rank{r}.err"))]
+            if not failed:
+                raise
+            with open(os.path.join(tmp, f"rank{failed[0]}.err")) as fh:
+                raise RuntimeError(f"rank {failed[0]} failed:\n"
+                                   f"{fh.read()}") from None
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as fh:
@@ -129,10 +148,24 @@ def _rank_main(rank, fn, world, backend, device_type, timeout_s, tmp, args):
     dist.init_process_group(
         backend, store=dist.FileStore(os.path.join(tmp, "store"), world),
         rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        timeout=datetime.timedelta(seconds=timeout_s),
+        device_id=device if backend == "nccl" else None)
     try:
         result = fn(Rank(rank, world, device, BACKENDS[backend]), *args)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        if backend != "nccl":
+            dist.destroy_process_group()
+            raise
+        # collectives left in flight that no peer will join (a replayed
+        # graph's, once a rank is out of step) hold up an orderly teardown
+        # and an abort of the communicators alike: leave the error for
+        # spawn_ranks and end the process at once, as the process group's
+        # watchdog does when an eager collective times out
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
     with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(result, fh)

@@ -27,6 +27,13 @@ Gloo moves host memory only: a CUDA tensor given to a gloo group is copied
 to the host, reduced there and copied back (``_staged``). That is the
 path of two ranks sharing one card, which NCCL refuses. No collective
 switches backend or device when one fails.
+
+NCCL's collectives can be recorded into a CUDA graph (``can_capture``),
+and every collective below is safe to record on an NCCL group: it stages
+nothing through the host and allocates only buffers whose sizes follow
+from its input's shape. ``CALLS`` counts the calls a process issues; a
+captured step counts its calls once at capture and the engine adds them
+at each replay (``engine.ChunkProgram``).
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-# collective calls made by this process, by kind; a reader resets them
+# collective calls made by this process, by kind (a replayed graph's
+# included); a reader resets them
 CALLS = {"all_reduce": 0, "all_gather": 0, "gather": 0}
 
 
@@ -170,6 +178,21 @@ def axis_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def can_capture(group) -> bool:
+    """Whether ``group``'s collectives can be recorded into a CUDA graph:
+    NCCL's can, gloo's (staged through host memory) cannot; ``None`` (no
+    collective) can."""
+    return group is None or dist.get_backend(group) == dist.Backend.NCCL
+
+
+def group_timeout_s(group) -> float:
+    """The timeout ``group`` was made with (``launch.spawn_ranks``'s
+    ``timeout_s``), in seconds."""
+    device = torch.device("cuda" if dist.get_backend(group)
+                          == dist.Backend.NCCL else "cpu")
+    return group._get_backend(device).options._timeout.total_seconds()
+
+
 def _staged(x, group):
     """``x`` where the group's backend can reduce it: a CUDA tensor goes
     to host memory for gloo."""
@@ -240,7 +263,10 @@ def all_gather_rows(x, group, dim: int = 0):
     CALLS["all_gather"] += 1
     is_bool = x.dtype == torch.bool
     buf = _staged(x.to(torch.uint8) if is_bool else x, group).contiguous()
-    parts = [torch.empty_like(buf) for _ in range(axis_size(group))]
-    dist.all_gather(parts, buf, group=group)
-    out = torch.cat(parts, dim=dim).to(x.device)
+    n = axis_size(group)
+    # one flat gather, rank after rank along the first axis
+    flat = buf.new_empty((n * buf.shape[0], *buf.shape[1:]))
+    dist.all_gather_into_tensor(flat, buf, group=group)
+    out = flat if dim == 0 else torch.cat(flat.chunk(n), dim=dim)
+    out = out.to(x.device)
     return out.to(torch.bool) if is_bool else out

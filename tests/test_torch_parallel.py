@@ -11,6 +11,7 @@ only inside the tests, in this process.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -592,23 +593,118 @@ def _need_card():
         pytest.skip("needs a CUDA card")
 
 
+def _card_fit_rank(rank, horns, cfg, eager):
+    """A horns fit on a data mesh of this rank's world, with its
+    collective calls and both kernels' launches counted from 0."""
+    from massivedatans_tpu_torch.config import set_fp32_precision
+    from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
+    from massivedatans_tpu_torch.ops import neighbors
+
+    set_fp32_precision()
+    for k in sharded.CALLS:
+        sharded.CALLS[k] = 0
+    for fn in neighbors.KERNELS:
+        fn.launches = 0
+    result = multi_nested_integrator(
+        make_gaussline_problem(horns["x"], horns["y"], horns["noise_level"]),
+        cfg, device=rank.device, progress=False, eager=eager,
+        mesh=sharded.make_mesh(rank.world, 1, rank.mesh_device_type))
+    return result, dict(sharded.CALLS), [fn.launches for fn in neighbors.KERNELS]
+
+
 @pytest.mark.cuda
 def test_world1_nccl_fit_equals_single_device_fit_on_the_card():
+    """One NCCL rank runs the chunks captured (its collectives inside the
+    graphs) and gives the single-device fit, and its own eager run, bit
+    for bit: collective calls and kernel launches included."""
     _need_card()
     from massivedatans_tpu_torch.cli import run_fit
     from massivedatans_tpu_torch.datagen.generators import gen_horns
-    from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
 
     d = gen_horns(64)
     cfg = RunConfig(nlive_points=100)
     single = run_fit(d["x"], d["y"], cfg, "cuda", noise_level=d["noise_level"])
-    world1 = run_sharded(make_gaussline_problem(d["x"], d["y"],
-                                                d["noise_level"]),
-                         cfg, 1, "nccl", "cuda", timeout_s=TIMEOUT_S)
-    for k in ("logZ", "logZerr", "L", "u", "w", "mask"):
-        np.testing.assert_array_equal(getattr(world1, k), getattr(single, k))
-    assert world1.niterations == single.niterations
-    assert world1.ndraws == single.ndraws
+    (world1, calls, launches), = spawn_ranks(_card_fit_rank, 1, "nccl",
+                                             "cuda", TIMEOUT_S, d, cfg, False)
+    (eager, e_calls, e_launches), = spawn_ranks(
+        _card_fit_rank, 1, "nccl", "cuda", TIMEOUT_S, d, cfg, True)
+    assert world1.stats["chunk_path"] == "graph"
+    assert world1.stats["graph_replays"] > 0
+    assert eager.stats["chunk_path"] == "eager"
+    for other in (single, eager):
+        for k in ("logZ", "logZerr", "L", "u", "w", "mask"):
+            np.testing.assert_array_equal(getattr(world1, k),
+                                          getattr(other, k))
+        assert world1.niterations == other.niterations
+        assert world1.ndraws == other.ndraws
+        assert world1.stats["fill_rounds"] == other.stats["fill_rounds"]
+    assert calls == e_calls and calls["all_reduce"] > 0
+    assert launches == e_launches and min(launches) > 0
+
+
+def _card_gloo_rank(rank, horns):
+    from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
+
+    result = multi_nested_integrator(
+        make_gaussline_problem(horns["x"], horns["y"], horns["noise_level"]),
+        dataclasses.replace(NO_COLS, nlive_points=20), device=rank.device,
+        max_samples=30, progress=False,
+        mesh=sharded.make_mesh(rank.world, 1, rank.mesh_device_type))
+    return None if result is None else result.stats
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_run_eagerly():
+    """Gloo stages each collective through host memory, which a capture
+    refuses: two ranks sharing the card run the chunk's steps eagerly."""
+    _need_card()
+    from massivedatans_tpu_torch.datagen.generators import gen_horns
+
+    stats = spawn_ranks(_card_gloo_rank, 2, "gloo", "cuda", TIMEOUT_S,
+                        gen_horns(8, seed=3))[0]
+    assert stats["chunk_path"] == "eager" and stats["graph_replays"] == 0
+
+
+DRIFT_TIMEOUT_S = 30
+
+
+def _drift_rank(rank, horns):
+    """A fit on a data mesh of NCCL ranks whose rank 1 stalls before its
+    first graph replay, far past the process group's timeout."""
+    from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
+
+    if rank.rank == 1:
+        launch = engine.ChunkProgram._launch
+
+        def stalled(self, name):
+            if name in self.graphs:
+                time.sleep(100 * DRIFT_TIMEOUT_S)
+            return launch(self, name)
+
+        engine.ChunkProgram._launch = stalled
+    multi_nested_integrator(
+        make_gaussline_problem(horns["x"], horns["y"], horns["noise_level"]),
+        dataclasses.replace(NO_COLS, nlive_points=20), device=rank.device,
+        progress=False,
+        mesh=sharded.make_mesh(rank.world, 1, rank.mesh_device_type))
+
+
+@pytest.mark.cuda
+def test_rank_out_of_step_fails_the_run_on_the_cards():
+    """No process group watches the collectives of a replayed graph: when
+    a rank falls out of step, the other's status read raises
+    ``TimeoutError`` within the group's timeout and the run fails instead
+    of hanging."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from massivedatans_tpu_torch.datagen.generators import gen_horns
+
+    t0 = time.monotonic()
+    with pytest.raises(Exception, match="out of step"):
+        spawn_ranks(_drift_rank, 2, "nccl", "cuda", DRIFT_TIMEOUT_S,
+                    gen_horns(8, seed=3))
+    assert time.monotonic() - t0 < 8 * DRIFT_TIMEOUT_S
 
 
 def _card_mp_rank(rank, x_horns):

@@ -9,14 +9,21 @@ issues no operation that reads the device from the host or has a shape
 that depends on the data, and a whole chunk issues none outside the one
 status read per block. The steps' predication is held directly: a step
 whose flag is off changes nothing, and a chunk issued after termination
-is a no-op.
+is a no-op. Under a mesh (ranks with gloo, started by
+``parallel.spawn_ranks``) the same witness holds, and each step issues a
+fixed sequence of collectives, the same in every state and on every rank,
+as a capture of the steps on NCCL groups needs.
 """
 
+import collections
 import dataclasses
+import time
+import types
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from massivedatans_tpu_torch.config import RunConfig
@@ -27,6 +34,8 @@ from massivedatans_tpu_torch.models.analytic import (
 from massivedatans_tpu_torch.ns import engine
 from massivedatans_tpu_torch.ns.integrator import multi_nested_integrator
 from massivedatans_tpu_torch.ns.strategies import make_strategy
+from massivedatans_tpu_torch.parallel import sharded
+from massivedatans_tpu_torch.parallel.launch import spawn_ranks
 
 torch.set_num_threads(1)
 
@@ -214,6 +223,176 @@ def test_block_plan():
     assert plan((0.2, 16.0), resume_at=0) == (0, 2, 16)
     assert plan((0.2, 16.0), resume_at=20) == (0, 2, 10)
     assert plan((1.0, 175.0), resume_at=0)[2] == engine._SLOT_ROUNDS
+
+
+# --- the capture witness under a mesh ---------------------------------------------
+
+MESH_TIMEOUT_S = 120
+_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "all_gather", "gather")
+
+
+class Collectives:
+    """Records each collective this process issues, as (kind, shape,
+    dtype, reduce op, mesh axis), in the list of the step that issued it
+    (``runs``: one ``(step, calls)`` per step run; ``step`` is set by the
+    wrapped steps)."""
+
+    def __init__(self, axes):
+        self.axes = axes  # process group -> axis name
+        self.runs = []
+        self.step = None
+
+    def install(self):
+        for kind in _COLLECTIVES:
+            setattr(dist, kind, self._recorder(kind, getattr(dist, kind)))
+
+    def _recorder(self, kind, fn):
+        def record(*args, **kwargs):
+            if self.step is not None:
+                # the input: the second argument of the gathers into a
+                # tensor or a list, the first of the others
+                t = args[1] if kind.startswith("all_gather") else args[0]
+                op = kwargs.get("op", dist.ReduceOp.SUM) \
+                    if kind == "all_reduce" else None
+                self.runs[-1][1].append((kind, tuple(t.shape), str(t.dtype),
+                                         str(op), self.axes[kwargs["group"]]))
+            return fn(*args, **kwargs)
+        return record
+
+
+def _mesh_program(rank, model_parallel):
+    """This rank's chunk program at the sizes of ``_program``: the analytic
+    Gaussians (D=6) on a data mesh, or the horns lines (D=6) with the
+    spectral axis split over ``model_parallel`` ranks."""
+    from massivedatans_tpu_torch.datagen.generators import gen_horns
+    from massivedatans_tpu_torch.models.gaussline import make_gaussline_problem
+
+    torch.set_num_threads(1)
+    mesh = sharded.make_mesh(rank.world, model_parallel)
+    group = sharded.data_axis(mesh)[0]
+    model_group = sharded.model_axis(mesh)[0]
+    if model_parallel > 1:
+        h = gen_horns(6, seed=3)
+        problem = make_gaussline_problem(h["x"], h["y"], h["noise_level"])
+    else:
+        problem = _problem(D=6, seed=25)[1]
+    cfg = dataclasses.replace(CFG, phantom_capacity=4)
+    gen = torch.Generator().manual_seed(9)
+    state = sharded.shard_state(engine.init_state(problem, gen, cfg), mesh)
+    prog = engine.ChunkProgram(
+        sharded.shard_problem(problem, mesh), cfg, make_strategy(cfg),
+        cfg.resolve_member_capacity(6), cfg.chunk_iters, gen, state, group,
+        model_group)
+    axes = {g: name for g, name in ((group, "data"), (model_group, "model"))
+            if g is not None}
+    return prog, state, axes
+
+
+def _mesh_witness_rank(rank, model_parallel):
+    """Three chunks (from the initial state, from where the first left
+    off, and with every dataset terminated), each step kind run at least
+    once in each, under ``Watch`` and ``Collectives``. Returns the kinds,
+    the syncing operations found inside and outside the steps, the status
+    reads and every step run with its collectives, in order."""
+    prog, state, axes = _mesh_program(rank, model_parallel)
+    watch, calls = Watch(), Collectives(axes)
+    calls.install()
+    step = prog._step
+
+    def run(name):
+        watch.inside, calls.step = True, name
+        calls.runs.append((name, []))
+        try:
+            return step(name)
+        finally:
+            watch.inside, calls.step = False, None
+
+    prog._step = run
+    with watch:
+        for chunk in range(3):
+            if chunk == 2:
+                state.running.zero_()
+            prog.start(state, 2 ** 30, None)
+            for kind in prog.kinds():
+                prog._step(kind)
+            state = prog.finish()[0]
+    return dict(kinds=prog.kinds(), found=watch.found, syncs=prog.syncs,
+                runs=calls.runs, states=int(state.iteration))
+
+
+@pytest.mark.parametrize("model_parallel", [1, 2], ids=["data2", "data1_model2"])
+def test_mesh_steps_issue_fixed_collectives(model_parallel):
+    """On a 2-rank data mesh and on a data 1 x model 2 mesh: no syncing
+    or data-shaped operation inside a step (outside, none beyond one
+    status read per block); each step issues the same collectives (kind,
+    shape, dtype, reduce op, axis) every time it runs, whatever the state;
+    and every rank runs the same steps with the same collectives in the
+    same order."""
+    out = spawn_ranks(_mesh_witness_rank, 2, "gloo", "cpu", MESH_TIMEOUT_S,
+                      model_parallel)
+    kinds = {"region", "focus"} | ({"column"} if model_parallel > 1 else set())
+    for r in out:
+        assert set(r["kinds"]) == kinds
+        assert not [name for inside, name in r["found"] if inside]
+        assert len([name for inside, name in r["found"] if not inside]) \
+            <= r["syncs"]
+        by_step = collections.defaultdict(set)
+        for name, seq in r["runs"]:
+            by_step[name].add(tuple(seq))
+        assert set(by_step) == {"start", "begin", "end"} | kinds
+        for name, seqs in by_step.items():
+            assert len(seqs) == 1, (name, seqs)
+        # every step votes over the data axis; only a round's likelihood
+        # reduces over the model axis
+        axes = {name: {c[4] for c in next(iter(seqs))}
+                for name, seqs in by_step.items()}
+        assert all("data" in a for a in axes.values()), axes
+        for name, a in axes.items():
+            assert ("model" in a) == (model_parallel > 1 and name in kinds)
+        # the first chunk advanced; the last (every dataset off) did not
+        assert r["states"] > 0
+    assert out[0]["runs"] == out[1]["runs"]
+    assert len(out[0]["runs"]) > 3 * (3 + len(kinds))
+
+
+def _path_rank(rank):
+    """The chunk path each setting selects, with a CUDA generator's
+    device (selection reads only that) and this rank's gloo group."""
+    mesh = sharded.make_mesh(rank.world)
+    group = sharded.data_axis(mesh)[0]
+    cuda = types.SimpleNamespace(device=torch.device("cuda"))
+
+    def path(**kw):
+        return engine.ChunkRunner(None, 0, 1, cuda, **kw).path
+
+    return dict(
+        can_capture=(sharded.can_capture(group), sharded.can_capture(None)),
+        timeout_s=sharded.group_timeout_s(group),
+        paths=[path(), path(eager=True), path(group=group),
+               path(model_group=group), path(group=group, eager=True)])
+
+
+def test_gloo_groups_and_eager_select_the_eager_path():
+    """A card without a mesh captures; ``eager=True`` and a gloo group (on
+    either axis) run eagerly; the status read's deadline is the group's
+    own timeout."""
+    for r in spawn_ranks(_path_rank, 2, "gloo", "cpu", MESH_TIMEOUT_S):
+        assert r["can_capture"] == (False, True)
+        assert r["timeout_s"] == MESH_TIMEOUT_S
+        assert r["paths"] == ["graph", "eager", "eager", "eager", "eager"]
+
+
+def test_status_wait_raises_past_its_deadline():
+    """The status read's wait under a mesh: a query that never completes
+    raises ``TimeoutError`` naming what it waited for, soon after the
+    deadline; one that completes returns."""
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="rank 3: a block"):
+        engine.wait_polled(lambda: False, 0.2, "rank 3: a block")
+    assert 0.2 <= time.monotonic() - t0 < 5.0
+    polls = iter([False, False, True])
+    engine.wait_polled(lambda: next(polls), 0.2, "never")
+    assert next(polls, None) is None
 
 
 # --- on the card -----------------------------------------------------------------

@@ -1,21 +1,27 @@
 """Fit the 1000 horns spectra on one card, then on meshes of ranks.
 
     python3 tools/torch_sharded_fit.py                     # NCCL on every card
-    python3 tools/torch_sharded_fit.py --runs 1:nccl 2:gloo 4:nccl
+    python3 tools/torch_sharded_fit.py --runs 1:nccl 2:gloo 4:nccl 4:nccl:2
+    python3 tools/torch_sharded_fit.py --runs 4:nccl --eager
     python3 tools/torch_sharded_fit.py --runs 2:gloo --device cpu
 
 The single-device fit is ``run_fit`` with the default ``RunConfig`` (the
-horns fit of ``chip_smoke.py`` phase 4); each run ``WORLD:BACKEND`` is
-``chip_smoke.sharded_fit``: the same fit on a dataset mesh of WORLD ranks
-(NCCL: one card per rank; gloo: the ranks share the cards, collectives
-staged through the host), held to it bit for bit at one rank, to the
+horns fit of ``chip_smoke.py`` phase 4); each run
+``WORLD:BACKEND[:MODEL_PARALLEL]`` is ``chip_smoke.sharded_fit``: the
+same fit on a mesh of WORLD ranks, MODEL_PARALLEL (default 1) of them on
+the spectral axis (NCCL: one card per rank, the chunks captured as CUDA
+graphs; gloo: the ranks share the cards, collectives staged through the
+host, the chunks eager), held to it bit for bit at one rank, to the
 quadrature bar of ``quad_logZ.json`` always, with both region kernels
-launched on every rank. One JSON line per run: walls, iterations,
-evaluations, fill rounds, collective calls and wall per fill round,
-launches per rank. The default runs NCCL across every card of the
-machine (at most 4). On a card, the card's name and power limit come
-first; ``--device cpu`` rehearses the control flow, and stops at the
-launch check (CPU tensors launch no kernel).
+launched on every rank. ``--eager`` runs each mesh a second time with its
+steps eager and holds the two bit for bit (``chip_smoke.hold_paths``:
+the result, and every rank's launches and collective calls). One JSON
+line per run: chunk path, graph replays and host syncs per iteration,
+walls, iterations, evaluations, fill rounds, collective calls and wall
+per fill round, launches per rank. The default runs NCCL across every
+card of the machine (at most 4). On a card, the card's name and power
+limit come first; ``--device cpu`` rehearses the control flow, and stops
+at the launch check (CPU tensors launch no kernel).
 """
 
 from __future__ import annotations
@@ -33,8 +39,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", nargs="+", default=None,
-                    help="WORLD:BACKEND, e.g. 4:nccl (default: every card, "
-                         "at most 4, with nccl)")
+                    help="WORLD:BACKEND[:MODEL_PARALLEL], e.g. 4:nccl or "
+                         "4:nccl:2 (default: every card, at most 4, with "
+                         "nccl)")
+    ap.add_argument("--eager", action="store_true",
+                    help="also run each mesh with its steps eager and hold "
+                         "the two bit for bit")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -45,7 +55,6 @@ def main(argv=None):
     from massivedatans_tpu_torch.cli import run_fit
     from massivedatans_tpu_torch.config import RunConfig, set_fp32_precision
     from massivedatans_tpu_torch.datagen.generators import gen_horns
-    from massivedatans_tpu_torch.ns import region
     from massivedatans_tpu_torch.ops import _build, neighbors
 
     if args.device == "cuda":
@@ -59,7 +68,6 @@ def main(argv=None):
     chip_smoke.DEVICE = args.device
     runs = args.runs or [f"{min(torch.cuda.device_count(), 4)}:nccl"]
     set_fp32_precision()
-    rounds = chip_smoke._count_rounds(region)
     neighbors.count_within.launches = 0
     neighbors.bootstrapped_sq_radius.launches = 0
     cfg = RunConfig()
@@ -70,9 +78,7 @@ def main(argv=None):
                      noise_level=data["noise_level"])
     chip_smoke._sync()
     wall = time.perf_counter() - t0
-    launches = dict(count_within=neighbors.count_within.launches,
-                    bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches,
-                    region_rounds=len(rounds))
+    launches = chip_smoke.launch_counts(neighbors, single)
     print(json.dumps(dict(fit="horns ndata=1000 nlive=400, one device",
                           wall_s=wall, niter=single.niterations,
                           ndraws=single.ndraws,
@@ -81,9 +87,13 @@ def main(argv=None):
     with open(os.path.join(ROOT, "quad_logZ.json")) as fh:
         quad = np.asarray(json.load(fh)["logZ"], float)
     for run in runs:
-        world, backend = run.split(":")
-        chip_smoke.sharded_fit(int(world), backend, data, cfg, single,
-                               launches, wall, quad)
+        world, backend, *mp = run.split(":")
+        recs = [chip_smoke.sharded_fit(int(world), backend, data, cfg, single,
+                                       launches, wall, quad,
+                                       int(mp[0]) if mp else 1, eager)
+                for eager in ((False, True) if args.eager else (False,))]
+        if args.eager:
+            chip_smoke.hold_paths(*recs)
     return 0
 
 
