@@ -44,7 +44,12 @@ version on the card:
   two ranks sharing the card under gloo (staged through the host, the
   chunks eager), and NCCL across the cards where there are two or more
   (captured); then the model-parallel likelihoods on a (data 1, model 2)
-  mesh on the card.
+  mesh on the card;
+- horns at the reference's headline scale: ``gen_horns(10000)`` (the
+  stream of ``tools/scaling_bench.py`` and of ``bench.py``'s third
+  workload), all 10^4 spectra fitted by ``run_fit`` at the default
+  ``RunConfig`` on the captured path, where the group labels refresh
+  every 4th chunk.
 
 Phases, each of which raises on failure:
 
@@ -69,9 +74,9 @@ Phases, each of which raises on failure:
    runs on the captured path (CUDA graph replays, ``stats["chunk_path"]``
    "graph"); its first ``HORNS_EAGER_CHUNKS`` chunks then run on both
    paths, eagerly with ``eager=True`` (the same steps dispatched one operation
-   at a time) from the same seed, and logZ, logZerr, L, iterations, fill
-   rounds, evaluations and both kernels' launches must be equal bit for
-   bit (``compare_paths``). The fit runs again at ``pipeline_lookahead``
+   at a time) from the same seed, and logZ, logZerr, the L, u, w and mask
+   records, iterations, fill rounds, evaluations and both kernels'
+   launches must be equal bit for bit (``compare_paths``). The fit runs again at ``pipeline_lookahead``
    0 (phase 4's is the default, 1) and holds the same bar, and a slice of
    ``PATH_PROFILE_SAMPLES`` iterations is profiled on both paths
    (``path_profile``: busy share, kernels and host launches per
@@ -150,7 +155,19 @@ Phases, each of which raises on failure:
    replays and host syncs per iteration, walls, evaluations, fill rounds,
    collective calls per fill round, wall per round, launches per rank and
    its bars;
-10. print one JSON line of kernel records, then the card's line, then the
+10. horns ndata=10^4 (``horns10k_phase``): reset the counters, run the
+   10^4 fit to tolerance on the captured path, read the counters (as in
+   4), print its wall, iterations, evaluations (and per dataset), fill
+   rounds, member overflow, pile peak, chunks, group refreshes, the
+   largest ``n_groups``, steps by kind, graph replays and host syncs per
+   iteration, the graph pool, peak device memory and the host timing
+   split; check the shapes ``(niter + 400, 10^4, 3)``, finite logZ,
+   logZerr > 0, no stalled dataset, >= 95 of the 100 datasets of
+   ``quad_logZ_horns10000.json`` within 3 logZerr + 0.5, and fewer group
+   refreshes than chunks (the cadence branch ran); then hold its first
+   ``HORNS10K_EAGER_CHUNKS`` chunks bit for bit against their eager run
+   as in 4;
+11. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
@@ -165,6 +182,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import resource
 import subprocess
 import sys
 import tempfile
@@ -205,7 +223,14 @@ STRATEGY_EAGER_CHUNKS = {"MULTIELLIPSOIDS": 10, "SLICE": 4, "GALILEAN": 6}
 # the smoke inside its time limit (phase 9's one NCCL rank holds the
 # eager code against phase 4's captured fit at full depth); the escalated
 # MUSE fit's runs to the cap, to hold its escalated chunks
-HORNS_EAGER_CHUNKS, MUSE_EAGER_CHUNKS = 40, 20
+HORNS_EAGER_CHUNKS, MUSE_EAGER_CHUNKS = 20, 20
+# the reference's headline scale (phase 10): the first 10^4 spectra of
+# gen_horns(10000), the stream of tools/scaling_bench.py and bench.py's
+# third workload, held to its own oracle; the eager reference cut to the
+# first chunks, as at 1,000
+HORNS10K_NDATA = 10000
+HORNS10K_ORACLE = "quad_logZ_horns10000.json"
+HORNS10K_EAGER_CHUNKS = 10
 # the capped slices profiled on both paths (busy share, kernels dispatched
 # from the host per iteration)
 PATH_PROFILE_SAMPLES = {"horns": 150, "MULTIELLIPSOIDS": 100, "SLICE": 30,
@@ -509,10 +534,11 @@ def path_stats(result):
 def compare_paths(label, fit, neighbors, graph=None, regions=True):
     """A fit on the captured path (``graph``: its result, wall and launch
     counts, or run here as ``fit(eager=False)``) against ``fit(eager=True)``,
-    the eager run of the same steps on the card from the same seed: logZ,
-    logZerr, L, iterations, fill rounds, evaluations and both kernels'
-    launches must be equal bit for bit (``regions``: as in
-    ``launch_counts``). Prints and returns the record."""
+    the eager run of the same steps on the card from the same seed: the
+    digests (``_fit_digest``: logZ, logZerr, iterations, evaluations, fill
+    rounds, the L, u, w and mask records) and both kernels' launches must
+    be equal bit for bit (``regions``: as in ``launch_counts``). Prints
+    and returns the record."""
     runs = []
     for eager in (False, True):
         if graph is not None and not eager:
@@ -527,12 +553,7 @@ def compare_paths(label, fit, neighbors, graph=None, regions=True):
         runs.append((r, time.perf_counter() - t0,
                      launch_counts(neighbors, r, regions)))
     (g, wall_g, n_g), (e, wall_e, n_e) = runs
-    bitwise = dict(
-        logZ=bool(np.array_equal(g.logZ, e.logZ)),
-        logZerr=bool(np.array_equal(g.logZerr, e.logZerr)),
-        L=bool(np.array_equal(g.L, e.L)),
-        counts=(g.niterations, g.stats["fill_rounds"], g.ndraws)
-        == (e.niterations, e.stats["fill_rounds"], e.ndraws),
+    bitwise = _bitwise(_fit_digest(g), _fit_digest(e)) | dict(
         launches=n_g == n_e)
     rec = dict(fit=label, wall_s_graph=wall_g, wall_s_eager=wall_e,
                niter=g.niterations, fill_rounds=g.stats["fill_rounds"],
@@ -923,8 +944,15 @@ def main(argv=None):
                                      fixture)
         print(json.dumps({"sharded": sharded_recs}))
 
-    # --- phase 10: records ---
-    phase("phase 10: records")
+    # --- phase 10: horns ndata=10^4 ---
+    phase("phase 10: horns ndata=10^4")
+    del result, result0  # about 0.4 GB of host records at 1,000
+    reset_counts()
+    big_launches = horns10k_phase(run_fit, cfg, gen_horns, read_counts,
+                                  neighbors)
+
+    # --- phase 11: records ---
+    phase("phase 11: records")
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":
@@ -940,6 +968,7 @@ def main(argv=None):
             launches_strategies={k: v[name]
                                  for k, v in strategy_launches.items()},
             launches_resume=resume_launches[name],
+            launches_horns10k=big_launches[name],
             launches_muse_escalated=escalated_launches[name],
             # per rank, for each sharded fit
             launches_sharded={f"{r['backend']} world {r['world']}":
@@ -1267,6 +1296,77 @@ def backends_phase(data, horns_result, fixture, muse_result):
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
     return records
+
+
+def horns10k_phase(run_fit, cfg, gen_horns, read_counts, neighbors):
+    """Phase 10: the horns fit at the reference's headline scale, the
+    first ``HORNS10K_NDATA`` spectra of ``gen_horns(HORNS10K_NDATA)`` at
+    ``cfg`` (the default ``RunConfig``) on the captured path, to
+    tolerance. The launch counters must be 0 when it is called. Checks the
+    shapes, finite logZ, logZerr > 0, no stalled dataset, the quadrature
+    bar of ``HORNS10K_ORACLE`` (>= 95 of its 100 datasets), that the group
+    labels ran on their cadence (fewer refreshes than chunks, K*D being
+    past 2^20) and that the first ``HORNS10K_EAGER_CHUNKS`` chunks are
+    their eager run bit for bit (``compare_paths``). Prints the fit's
+    record and the comparison's; returns the fit's launches."""
+    data = gen_horns(HORNS10K_NDATA)
+
+    def fit(eager=False, **run_opts):
+        return run_fit(data["x"], data["y"], cfg, DEVICE,
+                       noise_level=data["noise_level"], eager=eager,
+                       **run_opts)
+
+    _peak_reset()
+    _sync()
+    t0 = time.perf_counter()
+    result = fit()
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = read_counts(result)
+    st = result.stats
+    D, K = HORNS10K_NDATA, cfg.nlive_points
+    print(json.dumps(dict(
+        fit=f"horns ndata={D} nlive={K}", wall_s=wall,
+        niter=result.niterations, ndraws=result.ndraws,
+        fill_rounds=st["fill_rounds"], evaluations_per_dataset=result.ndraws / D,
+        member_overflow=st["member_overflow"], pile_peak=st["pile_peak"],
+        chunks=st["chunks"], group_refreshes=st["group_refreshes"],
+        n_groups_max=st["n_groups_max"], steps=st["steps"],
+        stalled_total=int(st["stalled_mask"].sum()), launches=launches,
+        **path_stats(result), graph_pool_GB=st["graph_pool_bytes"] / 1e9,
+        peak_mem_GB=_peak_gb(),
+        # the process's peak resident set so far (kB on Linux)
+        host_peak_rss_GB=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        / 1e6, timing=st["timing"])))
+    rows = result.niterations + K
+    assert st["chunk_path"] == "graph", st["chunk_path"]
+    assert result.u.shape == result.x.shape == (rows, D, 3), result.u.shape
+    for a in (result.L, result.w, result.mask):
+        assert a.shape == (rows, D), a.shape
+    assert result.logZ.shape == (D,) and np.isfinite(result.logZ).all()
+    assert (result.logZerr > 0).all()
+    assert not st["stalled_mask"].any(), int(st["stalled_mask"].sum())
+    # the labels refresh every 4th chunk once K * D > 2^20
+    assert 0 < st["group_refreshes"] < st["chunks"], st
+    with open(os.path.join(ROOT, HORNS10K_ORACLE)) as fh:
+        oracle = json.load(fh)
+    assert oracle["n_gen"] == HORNS10K_NDATA, oracle["n_gen"]
+    quad = np.asarray(oracle["logZ"], float)
+    nq = len(quad)
+    dq = np.abs(result.logZ[:nq] - quad)
+    within = int((dq < 3 * result.logZerr[:nq] + 0.5).sum())
+    print(f"quadrature oracle ({HORNS10K_ORACLE}): {within}/{nq} datasets "
+          f"within 3 logZerr + 0.5 (median |dlogZ| {np.median(dq):.3f}, "
+          f"max {dq.max():.3f})")
+    assert within >= int(np.ceil(0.95 * nq)), (within, nq)
+    del result  # about 2 GB of host records
+    with tempfile.TemporaryDirectory() as tmp:
+        compare_paths(
+            f"horns ndata={D}, first {HORNS10K_EAGER_CHUNKS} chunks",
+            lambda eager: fit(eager, checkpoint_dir=os.path.join(
+                tmp, "eager" if eager else "graph"),
+                max_chunks=HORNS10K_EAGER_CHUNKS), neighbors)
+    return launches
 
 
 def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, device=DEVICE):

@@ -519,6 +519,7 @@ class ChunkProgram:
         self.steps = collections.Counter()  # steps run, by name
         self.replays = self.syncs = 0
         self.capture_s = 0.0
+        self.pool_bytes = 0  # device memory the captures reserved
         self.rates = None
         self._pinned = self._event = None
         groups = [g for g in (group, model_group) if g is not None]
@@ -591,6 +592,10 @@ class ChunkProgram:
                     dist.all_reduce(torch.zeros(1, device=self.device),
                                     group=group)
         torch.cuda.synchronize(self.device)
+        # a capture's entry empties the cache: the reserved memory that
+        # remains after it is the pool's
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         mode = "global" if self.timeout_s is None else "thread_local"
         pool = torch.cuda.graph_pool_handle()
         for name in ("start", "begin", "end", *self.kinds()):
@@ -608,6 +613,7 @@ class ChunkProgram:
             CALLS.update(calls)
             self.graphs[name] = graph
         self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
     def kinds(self):
         """The round kinds this configuration's schedule can use."""
@@ -1062,7 +1068,8 @@ class ChunkRunner:
                                    collections.Counter())),
                     graph_replays=sum(p.replays for p in progs),
                     status_reads=sum(p.syncs for p in progs),
-                    capture_s=sum(p.capture_s for p in progs))
+                    capture_s=sum(p.capture_s for p in progs),
+                    graph_pool_bytes=sum(p.pool_bytes for p in progs))
 
 
 def wait_polled(done, timeout_s: float, what: str) -> None:

@@ -216,7 +216,10 @@ def multi_nested_integrator(
     the host waits on, as in the JAX package. A chunk dispatched after every
     dataset has terminated on the device is a no-op. The eval-batch
     escalation and the adaptive budget act on reports that lag by the
-    lookahead, and the group labels steer one chunk later. The pile is
+    lookahead, and the group labels steer one chunk later (they refresh on
+    every ``cfg.group_refresh_chunks``-th chunk, by default every chunk
+    while K*D <= 2^20 and every 4th past it: ``stats["group_refreshes"]``,
+    the largest group count in ``stats["n_groups_max"]``). The pile is
     compacted once its size predicted past the pipeline's drain
     (``ps + 2 (len(pipeline) + 1) growth``, ``growth`` the largest pile
     growth of a chunk seen) would pass capacity, or past 85 % of it: no
@@ -362,6 +365,7 @@ def multi_nested_integrator(
              "fill_rounds", "logZ", "rem_logZ", "live_idx")
     pipeline = deque()  # chunks dispatched, oldest first; all but the newest done
     dispatched = chunk_index
+    group_refreshes, n_groups_max = 0, state.n_groups
     compact_due = False
     interrupted = False
 
@@ -483,6 +487,8 @@ def multi_nested_integrator(
                 group_id=torch.as_tensor(np.maximum(labels[block], 0),
                                          dtype=torch.int32, device=device),
                 n_groups=max(int(n_groups), 1))
+            group_refreshes += 1
+            n_groups_max = max(n_groups_max, state.n_groups)
         t_c3 = time.time()
         hit_max_chunks = (max_chunks is not None and chunk_index >= max_chunks
                           and running_all.any())
@@ -590,6 +596,8 @@ def multi_nested_integrator(
             stall_count=stall_count,
             stalled_mask=stall_count > engine_lib.resolve_stall_limit(cfg),
             chunks=chunk_index,
+            group_refreshes=group_refreshes,
+            n_groups_max=n_groups_max,
             **runner.stats(),
             host_syncs=runner.stats()["status_reads"] + chunk_index,
             big_batch_chunks=big_batch_chunks,

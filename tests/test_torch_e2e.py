@@ -101,16 +101,21 @@ def test_max_samples_is_immediate():
     assert (np.abs(result.logZ - true_logZ(centers, 0.05)) < 25).all()
 
 
-def test_horns_first_spectra_match_quadrature():
-    """The first spectra of gen_horns(1000) against the committed
-    quadrature oracle, through the same run_fit the CLI and chip_smoke.py
-    call."""
-    data = gen_horns(1000)
+@pytest.mark.parametrize("oracle, n_gen", [("quad_logZ.json", 1000),
+                                           ("quad_logZ_horns10000.json", 10000)])
+def test_horns_first_spectra_match_quadrature(oracle, n_gen):
+    """The first spectra of gen_horns(n_gen) against the committed
+    quadrature oracle of that stream (the first spectra of the 1000 and
+    10^4 streams differ), through the same run_fit the CLI and
+    chip_smoke.py call."""
+    data = gen_horns(n_gen)
     D = 4
     result = run_fit(data["x"], data["y"][:, :D], RunConfig(nlive_points=100),
                      "cpu", noise_level=data["noise_level"])
-    with open(os.path.join(ROOT, "quad_logZ.json")) as fh:
-        quad = np.asarray(json.load(fh)["logZ"], float)[:D]
+    with open(os.path.join(ROOT, oracle)) as fh:
+        payload = json.load(fh)
+    assert payload.get("n_gen", 1000) == n_gen
+    quad = np.asarray(payload["logZ"], float)[:D]
     dq = np.abs(result.logZ - quad)
     assert (dq < 3 * result.logZerr + 0.5).all(), (dq, result.logZerr)
     assert result.u.shape == (result.niterations + 100, D, 3)
@@ -140,6 +145,31 @@ def test_decoupled_datasets_with_column_rounds(monkeypatch, constrainer):
         device="cpu", generator=torch.Generator().manual_seed(5),
         progress=False)
     assert len(calls) > 0
+    resid = np.abs(result.logZ - true_logZ(centers, sigma=0.015))
+    err = _err(result, SMALL.nlive_points)
+    assert (resid < 3.5 * err + 0.8).all(), (resid, err)
+    assert result.stats["stalled"] == 0
+
+
+def test_column_rounds_from_the_group_count():
+    """The multi-group regime: with ``column_focus_fallback_rounds=0`` a
+    fill's column rounds can come only from ``n_groups >
+    column_focus_groups`` (``ChunkProgram.round_kind``); the separated
+    blobs of test_decoupled_datasets_with_column_rounds decouple past 4
+    groups, column rounds run, and the evidences keep its bar."""
+    rng = np.random.default_rng(9)
+    gx, gy = np.meshgrid(np.linspace(0.15, 0.85, 4), np.linspace(0.2, 0.8, 3))
+    centers = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    centers += rng.uniform(-0.02, 0.02, size=centers.shape)
+    cfg = dataclasses.replace(SMALL, eval_batch=16, proposal_batch=64,
+                              column_focus_groups=4,
+                              column_focus_fallback_rounds=0)
+    result = multi_nested_integrator(
+        make_analytic_gaussian_problem(centers, sigma=0.015), cfg,
+        device="cpu", generator=torch.Generator().manual_seed(5),
+        progress=False)
+    assert result.stats["n_groups_max"] > cfg.column_focus_groups
+    assert result.stats["steps"].get("column", 0) > 0, result.stats["steps"]
     resid = np.abs(result.logZ - true_logZ(centers, sigma=0.015))
     err = _err(result, SMALL.nlive_points)
     assert (resid < 3.5 * err + 0.8).all(), (resid, err)

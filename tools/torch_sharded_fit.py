@@ -1,8 +1,9 @@
-"""Fit the 1000 horns spectra on one card, then on meshes of ranks.
+"""Fit the 1000 (or 10^4) horns spectra on one card, then on meshes of ranks.
 
     python3 tools/torch_sharded_fit.py                     # NCCL on every card
     python3 tools/torch_sharded_fit.py --runs 1:nccl 2:gloo 4:nccl 4:nccl:2
     python3 tools/torch_sharded_fit.py --runs 4:nccl --eager
+    python3 tools/torch_sharded_fit.py --ndata 10000 --runs 4:nccl
     python3 tools/torch_sharded_fit.py --runs 2:gloo --device cpu
 
 The single-device fit is ``run_fit`` with the default ``RunConfig`` (the
@@ -12,8 +13,11 @@ same fit on a mesh of WORLD ranks, MODEL_PARALLEL (default 1) of them on
 the spectral axis (NCCL: one card per rank, the chunks captured as CUDA
 graphs; gloo: the ranks share the cards, collectives staged through the
 host, the chunks eager), held to it bit for bit at one rank, to the
-quadrature bar of ``quad_logZ.json`` always, with both region kernels
-launched on every rank. ``--eager`` runs each mesh a second time with its
+quadrature bar always, with both region kernels launched on every rank.
+``--ndata`` picks the stream and its oracle: ``gen_horns(1000)`` and
+``quad_logZ.json`` (the default), or ``gen_horns(10000)`` and
+``quad_logZ_horns10000.json`` (the reference's headline scale, where the
+group labels refresh every 4th chunk). ``--eager`` runs each mesh a second time with its
 steps eager and holds the two bit for bit (``chip_smoke.hold_paths``:
 the result, and every rank's launches and collective calls). One JSON
 line per run: chunk path, graph replays and host syncs per iteration,
@@ -34,6 +38,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORACLES = {1000: "quad_logZ.json", 10000: "quad_logZ_horns10000.json"}
 
 
 def main(argv=None):
@@ -45,6 +50,9 @@ def main(argv=None):
     ap.add_argument("--eager", action="store_true",
                     help="also run each mesh with its steps eager and hold "
                          "the two bit for bit")
+    ap.add_argument("--ndata", type=int, default=1000, choices=sorted(ORACLES),
+                    help="the horns stream gen_horns(NDATA), all of it "
+                         "fitted, and its quadrature oracle")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -71,7 +79,7 @@ def main(argv=None):
     neighbors.count_within.launches = 0
     neighbors.bootstrapped_sq_radius.launches = 0
     cfg = RunConfig()
-    data = gen_horns(1000)
+    data = gen_horns(args.ndata)
     chip_smoke._sync()
     t0 = time.perf_counter()
     single = run_fit(data["x"], data["y"], cfg, args.device,
@@ -79,13 +87,20 @@ def main(argv=None):
     chip_smoke._sync()
     wall = time.perf_counter() - t0
     launches = chip_smoke.launch_counts(neighbors, single)
-    print(json.dumps(dict(fit="horns ndata=1000 nlive=400, one device",
-                          wall_s=wall, niter=single.niterations,
-                          ndraws=single.ndraws,
-                          fill_rounds=single.stats["fill_rounds"],
-                          launches=launches)))
-    with open(os.path.join(ROOT, "quad_logZ.json")) as fh:
+    with open(os.path.join(ROOT, ORACLES[args.ndata])) as fh:
         quad = np.asarray(json.load(fh)["logZ"], float)
+    nq = len(quad)
+    within = int((np.abs(single.logZ[:nq] - quad)
+                  < 3 * single.logZerr[:nq] + 0.5).sum())
+    st = single.stats
+    print(json.dumps(dict(fit=f"horns ndata={args.ndata} nlive=400, one device",
+                          wall_s=wall, niter=single.niterations,
+                          ndraws=single.ndraws, fill_rounds=st["fill_rounds"],
+                          chunk_path=st["chunk_path"], chunks=st["chunks"],
+                          group_refreshes=st["group_refreshes"],
+                          launches=launches, quad_within=within, quad_held=nq,
+                          timing=st["timing"])))
+    assert within >= int(np.ceil(0.95 * nq)), (within, nq)
     for run in runs:
         world, backend, *mp = run.split(":")
         recs = [chip_smoke.sharded_fit(int(world), backend, data, cfg, single,
