@@ -49,7 +49,12 @@ version on the card:
   stream of ``tools/scaling_bench.py`` and of ``bench.py``'s third
   workload), all 10^4 spectra fitted by ``run_fit`` at the default
   ``RunConfig`` on the captured path, where the group labels refresh
-  every 4th chunk.
+  every 4th chunk;
+- validation: the reference's no-signal calibration (``gen_nothing``,
+  100 of 1000 spectra and all 10^4) and posterior recovery
+  (``gen_simple(100)``) through ``tools/torch_calib_parity.py`` and
+  ``tools/torch_posterior_recovery.py``, held to the JAX package's
+  records.
 
 Phases, each of which raises on failure:
 
@@ -167,7 +172,21 @@ Phases, each of which raises on failure:
    refreshes than chunks (the cadence branch ran); then hold its first
    ``HORNS10K_EAGER_CHUNKS`` chunks bit for bit against their eager run
    as in 4;
-11. print one JSON line of kernel records, then the card's line, then the
+11. the reference's validation protocols (``validation_phase``), through
+   their tools, on the captured path: first ``tools/torch_muse_validate.py``'s
+   analysis of phase 6's capped MUSE fit, printed with no bar (the MUSE
+   validation to tolerance is too long for this script: it is the tool's
+   own run); then the no-signal calibration of
+   ``tools/torch_calib_parity.py`` (``gen_nothing(1000)[:, :100]`` at the
+   JAX tool's options: median log10 B within 0.1 of the JAX package's and
+   of the original code's, none above 0, >= 95 of 100 within 3 sigma of
+   the JAX package's per-dataset logZ; all of ``gen_nothing(10000)`` at the
+   default ``RunConfig``: records and evaluations within [0.5, 2] x the
+   JAX run's, median within 0.1 of the JAX package's), the posterior
+   recovery of ``tools/torch_posterior_recovery.py`` on ``gen_simple(100)``
+   (its four bars against the JAX package's record), each fit reading the
+   counters (as in 4);
+12. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
@@ -951,8 +970,13 @@ def main(argv=None):
     big_launches = horns10k_phase(run_fit, cfg, gen_horns, read_counts,
                                   neighbors)
 
-    # --- phase 11: records ---
-    phase("phase 11: records")
+    # --- phase 11: the reference's validation protocols ---
+    phase("phase 11: validation")
+    validation_phase(read_counts, neighbors, muse_res, fixture[2],
+                     args.muse_max_samples)
+
+    # --- phase 12: records ---
+    phase("phase 12: records")
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":
@@ -1369,6 +1393,62 @@ def horns10k_phase(run_fit, cfg, gen_horns, read_counts, neighbors):
     return launches
 
 
+def validation_phase(read_counts, neighbors, muse_result, truths, muse_cap):
+    """Phase 11: the reference's validation protocols on the captured path,
+    through the tools that run them (``tools/torch_calib_parity.py``,
+    ``tools/torch_posterior_recovery.py``): first
+    ``tools/torch_muse_validate.py``'s analysis of phase 6's MUSE fit
+    (capped at ``muse_cap``), with no bar; then the paired no-signal run,
+    the headline no-signal run at 10^4 and the gen_simple(100) recovery,
+    each held to its bars against the JAX package's records (every bar
+    must apply: the stream is the record's) and each launching both
+    kernels, ``count_within`` once per region round (``read_counts``).
+    Prints the analysis and each run's record on lines of their own."""
+    from tools import torch_calib_parity as calib
+    from tools import torch_muse_validate as musev
+    from tools import torch_posterior_recovery as recovery
+
+    out = dict(logZ=muse_result.logZ, x=muse_result.x, L=muse_result.L,
+               w=muse_result.w, mask=muse_result.mask)
+    capped = musev.capped_mask(muse_result.mask, muse_result.niterations,
+                               muse_cap)
+    t0 = time.perf_counter()
+    payload = musev.analyze(out, truths, capped, MUSE_NLIVE,
+                            muse_result.stats)
+    ex = payload["extra"]
+    print(json.dumps(dict(
+        analysis=f"tools/torch_muse_validate.py analyze of phase 6's fit "
+                 f"(max_samples {muse_cap}), no bar",
+        analysis_s=time.perf_counter() - t0, n_fit=ex["n_fit"],
+        n_capped=ex["n_capped"], sbc_rank_ks=ex["sbc_rank_ks"],
+        pull_coverage=ex["pull_coverage"],
+        zbin_mode_accuracy=ex["zbin_mode_accuracy"],
+        empty_evidence_identity=ex["empty_evidence_identity"],
+        goodness_of_fit=ex["goodness_of_fit"],
+        bars_at_tolerance=musev.bars(payload))))
+    bars, path = {}, "graph" if DEVICE == "cuda" else "eager"
+    runs = (("paired", lambda: calib.fit(DEVICE, 1000, 100, calib.PAIRED_CFG,
+                                         neighbors)),
+            ("headline", lambda: calib.fit(DEVICE, 10000, 10000, {},
+                                           neighbors)),
+            ("recovery", lambda: recovery.fit(DEVICE, 100, None, neighbors)))
+    for name, run in runs:
+        rec, res, *z_true = run()
+        rec["launches"] = read_counts(res)
+        assert rec["chunk_path"] == path, rec["chunk_path"]
+        assert np.isfinite(res.logZ).all() and (res.logZerr > 0).all()
+        held = (calib.paired_bars(rec, res) if name == "paired"
+                else calib.headline_bars(rec) if name == "headline"
+                else recovery.evaluate(rec, res, *z_true))
+        assert held, f"{name}: the stream is not the JAX record's"
+        bars.update(held)
+        rec["bars"] = held
+        print(json.dumps(rec), flush=True)
+        del res
+    print("validation bars:", json.dumps(bars))
+    assert all(bars.values()), bars
+
+
 def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, device=DEVICE):
     """Fit the first ``ndata`` horns spectra with ``cfg.constrainer``,
     print its record and check the path and the shapes: no region kernel
@@ -1730,26 +1810,14 @@ def sharded_phase(data, cfg, single, single_launches, single_wall, quad,
 
 
 def muse_fixture(tmp):
-    """Build the MUSE fixture in ``tmp``; returns ``(cube, templates,
-    truths)``."""
-    from massivedatans_tpu_torch.muse import synth
-    from massivedatans_tpu_torch.muse.pipeline import load_muse_cube
+    """Build the MUSE fixture in ``tmp`` (``tools/torch_muse_validate.py``'s
+    ``build_fixture``); returns ``(cube, templates, truths)``."""
+    from tools.torch_muse_validate import build_fixture
 
     t0 = time.perf_counter()
-    tpl = synth.make_template_files(os.path.join(tmp, "templates"))
-    n = MUSE_SIDE * MUSE_SIDE
-    cube_path, reg, truths_path = synth.make_model_cube(
-        os.path.join(tmp, f"model_cube_{n}.fits"),
-        os.path.join(tmp, f"sel_{n}.reg"), tpl,
-        os.path.join(tmp, f"truths_{n}.json"), ny=MUSE_SIDE, nx=MUSE_SIDE,
-        nspec=MUSE_NSPEC, seed=MUSE_SEED, flux_lo=MUSE_FLUX[0],
-        flux_hi=MUSE_FLUX[1])
-    # the synthetic cube has no sky residuals: no bad-window inflation
-    cube = load_muse_cube(cube_path, reg, maxdata=n, bad_windows=[])
-    with open(truths_path) as fh:
-        truths = json.load(fh)
+    fixture = build_fixture(tmp, MUSE_SIDE, MUSE_NSPEC, MUSE_SEED, MUSE_FLUX)
     print(f"MUSE fixture built in {time.perf_counter() - t0:.2f} s")
-    return cube, tpl, truths
+    return fixture
 
 
 def muse_fit(fixture, cap, progress=False, run_opts=None, **cfg_changes):

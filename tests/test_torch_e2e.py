@@ -194,21 +194,28 @@ def test_unported_options_raise(tmp_path):
 
 
 def test_port_modules_import_no_jax_modules():
-    """The port imports nothing of the JAX package and nothing of JAX, and
-    turns a JAX package RunConfig away."""
+    """The port imports nothing of the JAX package and nothing of JAX, nor
+    do ``chip_smoke.py`` and the tools that run the port on the card's
+    machine, which has no JAX; and the port turns a JAX package RunConfig
+    away."""
     pkg = os.path.join(ROOT, "massivedatans_tpu_torch")
-    for dirpath, _, files in os.walk(pkg):
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            with open(os.path.join(dirpath, f)) as fh:
-                src = fh.read()
-            assert "import jax" not in src and "from jax" not in src, f
-            for line in src.splitlines():
-                words = line.split()
-                if len(words) >= 2 and words[0] in ("from", "import"):
-                    top = words[1].split(".")[0]
-                    assert top not in ("massivedatans_tpu", "jax"), (f, line)
+    sources = [os.path.join(dirpath, f)
+               for dirpath, _, files in os.walk(pkg)
+               for f in files if f.endswith(".py")]
+    sources += [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "tools", f"{name}.py") for name in (
+            "torch_calib_parity", "torch_posterior_recovery",
+            "torch_muse_validate", "torch_muse_pieces",
+            "torch_scaling_bench")]
+    for f in sources:
+        with open(f) as fh:
+            src = fh.read()
+        assert "import jax" not in src and "from jax" not in src, f
+        for line in src.splitlines():
+            words = line.split()
+            if len(words) >= 2 and words[0] in ("from", "import"):
+                top = words[1].split(".")[0]
+                assert top not in ("massivedatans_tpu", "jax"), (f, line)
     problem = make_analytic_gaussian_problem(np.full((2, 2), 0.5))
     with pytest.raises(TypeError, match="asdict"):
         multi_nested_integrator(problem, JaxRunConfig(), device="cpu")
