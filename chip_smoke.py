@@ -54,7 +54,11 @@ version on the card:
   100 of 1000 spectra and all 10^4) and posterior recovery
   (``gen_simple(100)``) through ``tools/torch_calib_parity.py`` and
   ``tools/torch_posterior_recovery.py``, held to the JAX package's
-  records.
+  records;
+- the MUSE late state: the fill rounds of each kind and a few chunks of
+  the engine from the JAX MUSE run of record's last state, held to the
+  JAX package's rounds from the same state
+  (``tools/muse_rounds_from_state.py``).
 
 Phases, each of which raises on failure:
 
@@ -186,7 +190,21 @@ Phases, each of which raises on failure:
    recovery of ``tools/torch_posterior_recovery.py`` on ``gen_simple(100)``
    (its four bars against the JAX package's record), each fit reading the
    counters (as in 4);
-12. print one JSON line of kernel records, then the card's line, then the
+12. the MUSE late state (``late_state_phase``): the JAX MUSE run of
+   record's checkpoint (iteration 7,001) loaded into the port with numpy,
+   its 30 capped spaxels running again; their live L recomputed on the
+   card against float64 and the stored values at ``MUSE_CANCEL`` * yy,
+   and the threshold decisions at their lowest live L that the card and
+   float64 disagree on counted beside the JAX package's CPU count;
+   reset the counters, run ``LATE_BATCHES`` batches of each round kind
+   (region, focus, column) and ``LATE_CHUNKS`` captured chunks from the
+   state, read the counters (both kernels must launch); the chunks again
+   eagerly, bit for bit; each kind's valid share, accepted share and
+   radius and the chunks' evaluations, fill rounds and running spaxels
+   held to the JAX package's CPU numbers in ``muse_state_rounds.json``
+   (``tools/muse_rounds_from_state.py``), within 4 standard errors or 10
+   %, and printed beside them;
+13. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
@@ -325,6 +343,13 @@ MP_TOL = {"gaussline": (2e-5, 2e-4), "muse": (1e-4, 1e-3)}
 # float32's unit roundoff 2^-24 and TF32's 2^-11 (rounded up), and a
 # TF32 contraction must fail it.
 MUSE_CANCEL = 2.0 ** -17
+# phase 12: the JAX package's CPU record of the late state's rounds
+# (tools/muse_rounds_from_state.py), and what the card runs from it
+LATE_RECORD = "muse_state_rounds.json"
+LATE_BATCHES = 200  # per round kind, as in the record
+LATE_CHUNKS = 5
+LATE_SEED = 1
+LATE_HELD = ("valid_share", "accepted_share", "radius")
 
 
 def _time_ms(fn, n=TIMING_LAUNCHES):
@@ -975,8 +1000,12 @@ def main(argv=None):
     validation_phase(read_counts, neighbors, muse_res, fixture[2],
                      args.muse_max_samples)
 
-    # --- phase 12: records ---
-    phase("phase 12: records")
+    # --- phase 12: the MUSE late state ---
+    phase("phase 12: MUSE late state")
+    late_launches = late_state_phase(neighbors)
+
+    # --- phase 13: records ---
+    phase("phase 13: records")
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":
@@ -994,6 +1023,7 @@ def main(argv=None):
             launches_resume=resume_launches[name],
             launches_horns10k=big_launches[name],
             launches_muse_escalated=escalated_launches[name],
+            launches_muse_late_state=late_launches[name],
             # per rank, for each sharded fit
             launches_sharded={f"{r['backend']} world {r['world']}":
                               [c[name] for c in r["launches"]]
@@ -1447,6 +1477,98 @@ def validation_phase(read_counts, neighbors, muse_result, truths, muse_cap):
         del res
     print("validation bars:", json.dumps(bars))
     assert all(bars.values()), bars
+
+
+def late_state_phase(neighbors):
+    """Phase 12: the JAX MUSE run of record's late state (its checkpoint,
+    iteration 7,001) loaded into the port with numpy
+    (``tools/muse_rounds_from_state.py``, its spaxels stopped by the cap
+    running again) on the card. Each running spaxel's live L is recomputed
+    and held to a float64 witness and to the stored values at
+    ``MUSE_CANCEL`` * yy (the fixture is the state's cube), and the
+    decisions at its lowest live L that the card's likelihood and float64
+    disagree on are counted and printed beside the JAX package's CPU
+    count (``live_decisions``, no bar on the count); then
+    ``LATE_BATCHES`` batches of each round kind (region, focus, column)
+    and ``LATE_CHUNKS`` chunks of the engine (seed ``LATE_SEED``,
+    captured, then eagerly: both must end in the same state bit for bit),
+    between a reset and a read of the launch counters (both kernels must
+    launch). Each kind's valid share, accepted share and radius, and the
+    chunks' evaluations, fill rounds and running spaxels, are held to the
+    JAX package's CPU numbers in ``LATE_RECORD``: they fail where they part
+    from them by more than 4 standard errors (a chunk total's error is the
+    port's spread over the record's seeds) and by more than 10 %. Prints
+    the per-kind shares beside the record's and returns the counts."""
+    from tools import muse_rounds_from_state as mrs
+
+    with open(os.path.join(ROOT, LATE_RECORD)) as fh:
+        ref = json.load(fh)
+    state_file = os.path.join(ROOT, ref["state"])
+    assert mrs.sha256_file(state_file) == ref["state_sha256"]
+    raw, cap = mrs.state_arrays(os.path.dirname(state_file))
+    arrays = mrs.reopen(raw)
+    cfg = mrs.port_config(arrays)
+    with tempfile.TemporaryDirectory() as tmp:
+        cube, tpl, _ = muse_fixture(tmp)
+        problem = mrs.port_problem(cube, tpl, DEVICE)
+    t0 = time.perf_counter()
+    live = mrs.live_check(problem, cube, arrays, MUSE_CANCEL)
+    contour = mrs.live_decisions(problem, cube, arrays, MUSE_CANCEL)
+    print(json.dumps(dict(late_state_live_check=live,
+                          at_the_contour=contour,
+                          jax_cpu_at_the_contour=ref["A"]["at_the_contour"])))
+    assert live["held"] and live["spaxels"] == ref["running"], live
+    assert contour["held"], contour
+    state = mrs.port_labels(mrs.port_state(arrays, cap, DEVICE),
+                            cfg.nlive_points)
+    neighbors.count_within.launches = 0
+    neighbors.bootstrapped_sq_radius.launches = 0
+    kinds = mrs.port_kinds(problem, state, cfg, LATE_BATCHES)
+    chunks = mrs.port_chunks(problem, arrays, cap, cfg, LATE_SEED,
+                             LATE_CHUNKS, DEVICE)
+    _sync()
+    counts = dict(count_within=neighbors.count_within.launches,
+                  bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches)
+    wall = time.perf_counter() - t0
+    eager = mrs.port_chunks(problem, arrays, cap, cfg, LATE_SEED,
+                            LATE_CHUNKS, DEVICE, eager=True)
+    keys = ("niter", "fill_rounds", "ndraws", "running", "member_overflow",
+            "n_groups")
+    bitwise = (eager[-1]["digest"] == chunks[-1]["digest"]
+               and all(e[k] == c[k] for e, c in zip(eager, chunks)
+                       for k in keys))
+    jax_kinds = ref["B"]["jax"]
+    held = {f"{kind}.{k}": not mrs.differs(jax_kinds[kind][k],
+                                           kinds[kind][k])
+            for kind in mrs.KINDS for k in LATE_HELD
+            if jax_kinds[kind][k] is not None}
+    # what the chunks added to the state's counts, against the record's
+    runs, start = ref["C"]["runs"], ref["C"]["start"]
+    jax_totals = mrs.chunk_totals(runs["jax"], start)
+    port_totals = mrs.chunk_totals(runs["torch"], start)
+    card = {k: v[0] for k, v in mrs.chunk_totals([chunks], start).items()}
+    for k in ("fill_rounds", "ndraws", "running"):
+        spread = float(np.std(port_totals[k], ddof=1))
+        held[f"chunks.{k}"] = not mrs.differs(
+            (card[k], spread), mrs.mean_se(jax_totals[k]))
+    print(json.dumps(dict(
+        late_state=f"{ref['state']} (iteration {ref['iteration']}, "
+                   f"{ref['running']} spaxels reopened) on the card",
+        kinds={kind: {k: kinds[kind][k] for k in ("valid_share",
+                                                  "accepted_share",
+                                                  "radius", "overflow")}
+               for kind in mrs.KINDS},
+        jax_cpu={kind: {k: jax_kinds[kind][k] for k in (
+            "valid_share", "accepted_share", "radius", "overflow")}
+            for kind in mrs.KINDS},
+        chunks=chunks, added=card, jax_cpu_added={
+            k: mrs.mean_se(v) for k, v in jax_totals.items()},
+        eager_bitwise=bitwise, launches=counts, wall_s=wall, held=held)))
+    assert counts["count_within"] > 0, counts
+    assert counts["bootstrapped_sq_radius"] > 0, counts
+    assert bitwise, (chunks, eager)
+    assert all(held.values()), held
+    return counts
 
 
 def strategy_fit(run_fit, cfg, data, ndata, quad, neighbors, device=DEVICE):

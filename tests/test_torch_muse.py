@@ -179,6 +179,36 @@ def test_scaled_loglike_batch_matches_jax(mds):
     assert tp.y_over_v[50:80, 3].eq(0).all() and tp.inv_v[100:140, 5].eq(0).all()
 
 
+def test_full_width_likelihood_at_the_contour(tmp_path):
+    """nspec 3600 at yy of order 10^7: the full-size fixture and the JAX
+    MUSE run of record's late state (``tools/muse_rounds_from_state.py``).
+    Both packages' ``scaled_loglike_batch`` of each running spaxel's live
+    points is held to a float64 witness at ``MUSE_CANCEL`` * yy on every
+    spaxel (the bar ``LIKE_RTOL`` * (|L| + yy) above is about 200 nats
+    there), and the decisions ``L > t`` at the thresholds drawn from each
+    spaxel's lowest live L that the two packages (and each and float64)
+    disagree on are counted and held within 10 % of the count in
+    ``muse_state_rounds.json``."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import MUSE_CANCEL
+    from tools import muse_rounds_from_state as mrs
+    from tools.torch_muse_validate import build_fixture
+
+    with open(os.path.join(ROOT, "muse_state_rounds.json")) as fh:
+        want = json.load(fh)["A"]["at_the_contour"]
+    raw, _ = mrs.state_arrays(mrs.STATE_DIR)
+    arrays = mrs.reopen(raw)
+    cube, tpl, _ = build_fixture(str(tmp_path))
+    jproblem = mrs.jax_setup(cube, tpl, mrs.STATE_DIR, arrays)[0]
+    got = mrs.live_decisions(mrs.port_problem(cube, tpl), cube, arrays,
+                             MUSE_CANCEL, jproblem)
+    yy = np.asarray(jproblem.data.yy)[arrays["running"]]
+    assert yy.max() > 1e7 and got["spaxels"] == want["spaxels"] == 30
+    assert got["held"], got
+    for k, n in want["decisions_differ"].items():
+        assert abs(got["decisions_differ"][k] - n) <= 0.1 * n, (k, got)
+
+
 def test_loglike_paired_is_the_diagonal(mds):
     _, tmd = mds
     D = 8

@@ -1,7 +1,13 @@
-"""Both packages' counts on one small MUSE model-family cube, at the same
+"""Both packages' counts on one MUSE model-family cube, at the same
 options: the CPU comparison behind ROADMAP queue 3's MUSE rounds check.
 
     JAX_PLATFORMS=cpu python3 tools/jax_muse_rounds.py [--out FILE]
+    # the JAX package alone at full size, the witness's options (about
+    # 75 min on 8 shared cores), its states kept every 10 chunks
+    JAX_PLATFORMS=cpu python3 tools/jax_muse_rounds.py --side 10 \
+        --nspec 3600 --nlive 400 --seeds 1 --options budget --budget 319 \
+        --cap 7000 --packages jax --checkpoint-dir muse_rounds_ck \
+        --out muse_rounds_full_jax.json
 
 Builds ``tools/torch_muse_validate.py``'s fixture (``build_fixture``: 400
 template wavelengths, seed 11, flux 0.1-1.0, no bad-window inflation) once
@@ -18,17 +24,26 @@ chunk_fill_budget, max_samples)`` for each seed and each option set:
 - ``escalated``: to tolerance with ``eval_batch_max`` 512.
 
 No wall-clock fill budget (``dispatch_target_s``) is on in either
-package, so both runs are fixed by their seeds. One JSON line per fit
-(package, option set, seed, iterations, evaluations, fill rounds,
-evaluations per round, the spaxels still running at the cap, the sorted
-termination iterations, the CPU wall) is printed and the whole is written
-to ``--out`` with the cube's SHA-256. The walls are CPU walls, not
-times of either package on a device.
+package, so both runs are fixed by their seeds. ``--packages`` picks the
+packages (the port's CPU fits are about 10 x slower than the JAX
+package's: at full size its counts come from the card,
+``tools/torch_muse_validate.py``). One JSON line per fit (package, option
+set, seed, iterations, evaluations, fill rounds, evaluations per round,
+the spaxels still running at the cap, the sorted termination iterations,
+the CPU wall) is printed, and one per JAX chunk as it ends; the whole,
+each fit with its record per chunk (iterations, evaluations and fill
+rounds so far, spaxels running, member overflow, the group count of the
+labels made from its report, wall), is written to ``--out`` with the
+cube's SHA-256. ``--checkpoint-dir`` keeps each JAX fit's state every 10
+chunks (``DIR/OPTIONS_seedN/chunk_NNNNN``), from which
+``tools/muse_rounds_from_state.py --state`` starts. The walls are CPU
+walls, not times of either package on a device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -70,6 +85,56 @@ def summary(package, name, seed, opts, result, wall):
                 termination_iters=[int(t) for t in term], wall_s=wall)
 
 
+@contextlib.contextmanager
+def jax_chunk_records(checkpoint_dir=None):
+    """Record each chunk of the JAX package's fits made inside the block,
+    in the layout of ``torch_muse_validate.chunk_records`` (the counts of
+    its report, the group count of the labels made from it, the host wall
+    since the block began), printing each as a JSON line. With
+    ``checkpoint_dir``, each state the integrator saves there (every 10
+    chunks) is also kept in ``checkpoint_dir/chunk_NNNNN``, loadable by
+    ``io.checkpoint.load_state`` (``tools/muse_rounds_from_state.py
+    --state``). Nothing in the fit changes."""
+    from massivedatans_tpu.io import checkpoint as ckpt
+    from massivedatans_tpu.ns import engine, subsets
+
+    rows, groups, t0 = [], [], time.perf_counter()
+    parse, labels, save = (engine.parse_meta, subsets.component_labels,
+                           ckpt.save_state)
+
+    def parse_recorded(meta, D, K):
+        rep = parse(meta, D, K)
+        rows.append(dict(
+            chunk=len(rows) + 1, niter=rep["iteration"],
+            ndraws=rep["ndraws"], fill_rounds=rep["fill_rounds"],
+            running=int(rep["running_final"].sum()),
+            member_overflow=rep["member_overflow"],
+            wall_s=time.perf_counter() - t0))
+        print(json.dumps(dict(package="jax", **rows[-1])), flush=True)
+        return rep
+
+    def labels_recorded(*args, **kw):
+        out = labels(*args, **kw)
+        groups.append(int(out[1]))
+        return out
+
+    def save_kept(path, state, host_ctx, meta):
+        save(path, state, host_ctx, meta)
+        save(os.path.join(path, f"chunk_{meta['chunk_index']:05d}"), state,
+             host_ctx, meta)
+
+    engine.parse_meta, subsets.component_labels = parse_recorded, \
+        labels_recorded
+    ckpt.save_state = save_kept
+    try:
+        yield rows
+    finally:
+        engine.parse_meta, subsets.component_labels = parse, labels
+        ckpt.save_state = save
+        for r, g in zip(rows, groups + [None] * len(rows)):
+            r["n_groups"] = g
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--side", type=int, default=4)
@@ -82,6 +147,11 @@ def main(argv=None):
                     help="fill rounds per chunk of the 'budget' set")
     ap.add_argument("--cap", type=int, default=800,
                     help="iteration cap of the 'budget' set")
+    ap.add_argument("--packages", nargs="+", choices=("jax", "torch"),
+                    default=["jax", "torch"])
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="keep the JAX fits' states every 10 chunks here, "
+                         "one directory per option set and seed")
     ap.add_argument("--out", default=os.path.join(ROOT,
                                                   "muse_rounds_cpu.json"))
     args = ap.parse_args(argv)
@@ -92,7 +162,7 @@ def main(argv=None):
     from massivedatans_tpu.ns.integrator import multi_nested_integrator
     from massivedatans_tpu_torch.config import RunConfig
     from massivedatans_tpu_torch.muse.pipeline import fit_muse
-    from tools.torch_muse_validate import build_fixture
+    from tools.torch_muse_validate import build_fixture, chunk_records
 
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -106,20 +176,26 @@ def main(argv=None):
             for seed in args.seeds:
                 kw = dict(nlive_points=args.nlive, tolerance=0.5, seed=seed,
                           **opts)
-                for package in ("jax", "torch"):
+                for package in args.packages:
                     t0 = time.perf_counter()
                     if package == "jax":
-                        res = multi_nested_integrator(
-                            problem, JaxRunConfig(**kw), progress=False)
+                        ck = args.checkpoint_dir and os.path.join(
+                            args.checkpoint_dir, f"{name}_seed{seed}")
+                        with jax_chunk_records(ck) as per_chunk:
+                            res = multi_nested_integrator(
+                                problem, JaxRunConfig(**kw), progress=False,
+                                checkpoint_dir=ck)
                     else:
-                        res, _ = fit_muse(cube, tpl, 0.0, 0.5, "FULL",
-                                          RunConfig(**kw), device="cpu")
+                        with chunk_records() as per_chunk:
+                            res, _ = fit_muse(cube, tpl, 0.0, 0.5, "FULL",
+                                              RunConfig(**kw), device="cpu")
                     rows.append(summary(package, name, seed, opts, res,
                                         time.perf_counter() - t0))
                     print(json.dumps(rows[-1]), flush=True)
+                    rows[-1]["per_chunk"] = per_chunk
     ratios = {}
     for name in args.options:
-        for seed in args.seeds:
+        for seed in args.seeds if len(args.packages) == 2 else ():
             jax, port = (next(r for r in rows if r["package"] == p
                               and r["options"] == name and r["seed"] == seed)
                          for p in ("jax", "torch"))
@@ -129,7 +205,8 @@ def main(argv=None):
     record = dict(
         comparison=f"MUSE FULL {args.side}x{args.side} spaxels, nspec "
                    f"{args.nspec}, nlive {args.nlive}, seeds {args.seeds}: "
-                   "jax and torch on one cube",
+                   f"{' and '.join(args.packages)} on one cube",
+        packages=args.packages,
         side=args.side, nspec=args.nspec, nlive=args.nlive,
         seeds=args.seeds, cube_sha256=cube_sha, budget=args.budget,
         cap=args.cap, port_over_jax=ratios, fits=rows,

@@ -26,10 +26,14 @@ and restarts at 512 rounds in each piece).
 
 Each piece prints one JSON line (chunks, iterations, fill rounds,
 evaluations, spaxels still running, the fill budget, both kernels'
-launches, its wall) and appends it to ``pieces.jsonl`` in the checkpoint
-directory. The piece that finishes computes ``analyze``: the JAX tool's
-statistics (SBC rank KS per parameter, pull coverage, Z-bin accuracy, the
-no-star identity, chi^2/dof), from the ``NSResult`` in memory, and adds
+launches, its wall, and ``per_chunk``: each chunk's counts as
+``chunk_records`` takes them, the layout of
+``tools/jax_muse_rounds.py``'s JAX records) and appends it to
+``pieces.jsonl`` in the checkpoint directory; the output gathers the
+pieces' ``per_chunk``. The piece that finishes computes ``analyze``: the
+JAX tool's statistics (SBC rank KS per parameter, pull coverage, Z-bin
+accuracy, the no-star identity, chi^2/dof), from the ``NSResult`` in
+memory, and adds
 the counts beside the JAX run's, the late-run fill rounds per iteration
 and evaluations per round (from the pieces), and the bars:
 
@@ -64,6 +68,7 @@ The card's name and power limit come first on a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -297,6 +302,45 @@ def late_run(pieces, eval_batch):
     return rows
 
 
+@contextlib.contextmanager
+def chunk_records():
+    """Record each chunk of the port's fits made inside the block: a list
+    of dicts (chunk, iterations, evaluations and fill rounds so far,
+    spaxels running, member overflow, the group count of the labels made
+    from its report, host wall since the block began), in chunk order.
+    It reads each chunk's state when the chunk has finished, which adds a
+    host read and changes nothing in the fit."""
+    from massivedatans_tpu_torch.ns import engine, subsets
+
+    rows, groups, t0 = [], [], time.perf_counter()
+    finish, labels = engine.ChunkRunner.finish, subsets.component_labels
+
+    def finish_recorded(self):
+        st, dead, n = finish(self)
+        rows.append(dict(
+            chunk=len(rows) + 1, niter=int(st.iteration),
+            ndraws=int(st.ndraws), fill_rounds=int(st.fill_rounds),
+            running=int(st.running.sum()),
+            member_overflow=int(st.member_overflow),
+            wall_s=time.perf_counter() - t0))
+        return st, dead, n
+
+    def labels_recorded(*args, **kw):
+        out = labels(*args, **kw)
+        groups.append(int(out[1]))
+        return out
+
+    engine.ChunkRunner.finish = finish_recorded
+    subsets.component_labels = labels_recorded
+    try:
+        yield rows
+    finally:
+        engine.ChunkRunner.finish = finish
+        subsets.component_labels = labels
+        for r, g in zip(rows, groups + [None] * len(rows)):
+            r["n_groups"] = g
+
+
 def _launches(neighbors):
     return dict(count_within=neighbors.count_within.launches,
                 bootstrapped_sq_radius=neighbors.bootstrapped_sq_radius.launches)
@@ -367,9 +411,10 @@ def main(argv=None):
             tmp, args.side, args.nspec, flux=tuple(args.flux), n_wl=args.n_wl)
         fixture_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        result, problem = fit_muse(cube, tpl, 0.0, 0.5, "FULL", cfg,
-                                   device=args.device, progress=True,
-                                   **run_opts)
+        with chunk_records() as per_chunk:
+            result, problem = fit_muse(cube, tpl, 0.0, 0.5, "FULL", cfg,
+                                       device=args.device, progress=True,
+                                       **run_opts)
         wall = time.perf_counter() - t0
     stats = result.stats
     running = (int(ckpt.load_host(ck)["running"].sum()) if ck is not None
@@ -387,7 +432,8 @@ def main(argv=None):
         big_batch_chunks=stats["big_batch_chunks"],
         chunk_path=stats["chunk_path"], launches=_launches(neighbors),
         wall_s=wall, fixture_s=fixture_s, timing=stats["timing"],
-        interrupted=stats["interrupted"])
+        interrupted=stats["interrupted"],
+        per_chunk=[dict(r, chunk=r["chunk"] + done) for r in per_chunk])
     pieces = []
     if ck is not None:
         with open(os.path.join(ck, PIECES), "a") as fh:
@@ -425,6 +471,8 @@ def main(argv=None):
                      dispatch_target_s=args.dispatch_target_s,
                      device=args.device, chunk_path=stats["chunk_path"]),
         pieces=pieces, late_run=late_run(pieces or [piece], cfg.eval_batch),
+        per_chunk=[c for p in pieces or [piece]
+                   for c in p.get("per_chunk", [])],
         jax_run=dict(
             niter=jax["niter"], ndraws=jax["ndraws"],
             fill_rounds=jax["fill_rounds"],
