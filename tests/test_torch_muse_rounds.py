@@ -8,6 +8,7 @@ The late state is made here by the JAX package: a 4x4 model-family cube
 spaxels stopped by the cap are reopened as in the run of record's.
 """
 
+import json
 import math
 import os
 import subprocess
@@ -235,3 +236,30 @@ def test_the_card_side_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_state_tool_takes_the_bench_cube(tmp_path):
+    """``--cube bench``: a state kept by ``tools/jax_muse_rounds.py --cube
+    bench`` loads on ``tools/torch_muse_bench.py``'s cube (z up to 0.3,
+    the real-MUSE bad windows), its live L recomputes to the bar in both
+    packages, and (A) and (B) run at the bench options."""
+    from tools import jax_muse_rounds
+
+    ck, out = str(tmp_path / "ck"), str(tmp_path / "s.json")
+    assert jax_muse_rounds.main([
+        "--cube", "bench", "--n-spaxels", "12", "--nspec", "64", "--nlive",
+        "40", "--cap", "120", "--seeds", "1", "--packages", "jax",
+        "--checkpoint-dir", ck, "--out", str(tmp_path / "r.json")]) == 0
+    assert mrs.main([
+        "--cube", "bench", "--n-spaxels", "12", "--nspec", "64", "--state",
+        os.path.join(ck, "bench_seed1"), "--batches", "2", "--candidates",
+        "64", "--seeds", "1", "--parts", "A", "B", "--out", out]) == 0
+    with open(out) as fh:
+        rec = json.load(fh)
+    assert rec["cube"] == "bench" and rec["n_spaxels"] == 12
+    assert rec["reopened"] and rec["running"] > 0
+    assert rec["live_check"]["held"], rec["live_check"]
+    opts = rec["options"]
+    assert opts["proposal_batch"] == opts["column_proposal_batch"] == 8192
+    assert opts["column_focus_fallback_rounds"] == 2
+    assert set(rec["B"]["jax"]) == set(rec["B"]["torch"]) == set(mrs.KINDS)

@@ -9,8 +9,22 @@ options: the CPU comparison behind ROADMAP queue 3's MUSE rounds check.
         --cap 7000 --packages jax --checkpoint-dir muse_rounds_ck \
         --out muse_rounds_full_jax.json
 
-Builds ``tools/torch_muse_validate.py``'s fixture (``build_fixture``: 400
-template wavelengths, seed 11, flux 0.1-1.0, no bad-window inflation) once
+    # the JAX package's record of tools/muse_bench.py's cube at 4,223
+    # spaxels and known options (the wall-clock budget off), per chunk
+    JAX_PLATFORMS=cpu python3 tools/jax_muse_rounds.py --cube bench \
+        --n-spaxels 4223 --nspec 3600 --nlive 400 --seeds 1 --cap 4800 \
+        --packages jax --checkpoint-dir muse_bench_ck \
+        --out muse_bench_4223_jax.json
+
+``--cube bench`` takes ``tools/torch_muse_bench.py``'s cube (its
+``build_bench_cube``, the port's ``synth``, loaded with the real-MUSE bad
+windows, z in [0, 0.3]) and its options (``bench_options``: those of
+``tools/muse_bench.py``, checkpoints every 2 chunks included, with
+``--nlive`` and ``--cap``, and no wall-clock budget); ``--options`` and
+``--budget`` do not apply, and the port's fits run it on the CPU at the
+same options. Otherwise the tool builds ``tools/torch_muse_validate.py``'s
+fixture (``build_fixture``: 400 template wavelengths, seed 11, flux
+0.1-1.0, no bad-window inflation) once
 with the port's ``synth``, at ``--side`` x ``--side`` spaxels and
 ``--nspec`` channels, and fits that one cube with the JAX package's
 integrator and with the port's ``fit_muse`` on the CPU, at
@@ -34,8 +48,9 @@ the CPU wall) is printed, and one per JAX chunk as it ends; the whole,
 each fit with its record per chunk (iterations, evaluations and fill
 rounds so far, spaxels running, member overflow, the group count of the
 labels made from its report, wall), is written to ``--out`` with the
-cube's SHA-256. ``--checkpoint-dir`` keeps each JAX fit's state every 10
-chunks (``DIR/OPTIONS_seedN/chunk_NNNNN``), from which
+cube's SHA-256. ``--checkpoint-dir`` keeps each JAX fit's state at each
+checkpoint, every 10 chunks (every 2 with ``--cube bench``), in
+``DIR/OPTIONS_seedN/chunk_NNNNN``, from which
 ``tools/muse_rounds_from_state.py --state`` starts. The walls are CPU
 walls, not times of either package on a device.
 """
@@ -44,7 +59,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import hashlib
 import json
 import os
 import sys
@@ -61,13 +75,33 @@ def option_set(name, budget, cap):
                 tolerance={}, escalated=dict(eval_batch_max=512))[name]
 
 
-def cube_sha256(cube):
-    """SHA-256 of a cube's data and variance as little-endian float64."""
-    import numpy as np
+def bench_options(args) -> dict:
+    """``tools/torch_muse_bench.py``'s options at its defaults (those of
+    ``tools/muse_bench.py``) with this tool's spaxels, channels, nlive and
+    cap, and no wall-clock budget: the fixed fill budget alone."""
+    from tools import torch_muse_bench as bench
 
-    return hashlib.sha256(
-        np.ascontiguousarray(cube.y, "<f8").tobytes()
-        + np.ascontiguousarray(cube.var, "<f8").tobytes()).hexdigest()
+    opts = bench.defaults()
+    opts.update(n_spaxels=args.n_spaxels, nspec=args.nspec,
+                nlive=args.nlive, cap=args.cap, dispatch_target=0.0)
+    return opts
+
+
+def bench_fields(opts) -> dict:
+    """The ``RunConfig`` fields of the bench options that the seed, nlive
+    and tolerance leave (this tool sets those)."""
+    from tools import torch_muse_bench as bench
+
+    return {k: v for k, v in bench.config_fields(opts).items()
+            if k not in ("nlive_points", "seed", "tolerance")}
+
+
+def cube_sha256(cube):
+    """SHA-256 of a cube's data and variance as little-endian float64
+    (``tools/torch_muse_bench.cube_sha256``)."""
+    from tools.torch_muse_bench import cube_sha256 as sha
+
+    return sha(cube)
 
 
 def summary(package, name, seed, opts, result, wall):
@@ -115,7 +149,7 @@ def jax_chunk_records(checkpoint_dir=None):
 
     def labels_recorded(*args, **kw):
         out = labels(*args, **kw)
-        groups.append(int(out[1]))
+        groups.append((len(rows), int(out[1])))  # from the last report
         return out
 
     def save_kept(path, state, host_ctx, meta):
@@ -131,8 +165,9 @@ def jax_chunk_records(checkpoint_dir=None):
     finally:
         engine.parse_meta, subsets.component_labels = parse, labels
         ckpt.save_state = save
-        for r, g in zip(rows, groups + [None] * len(rows)):
-            r["n_groups"] = g
+        found = dict(groups)
+        for r in rows:
+            r["n_groups"] = found.get(r["chunk"])
 
 
 def main(argv=None):
@@ -152,6 +187,13 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None,
                     help="keep the JAX fits' states every 10 chunks here, "
                          "one directory per option set and seed")
+    ap.add_argument("--cube", choices=("fixture", "bench"),
+                    default="fixture",
+                    help="bench: tools/torch_muse_bench.py's cube of "
+                         "--n-spaxels spaxels at its options, the "
+                         "wall-clock budget off (--cap, --seeds, --nlive "
+                         "and --nspec still apply)")
+    ap.add_argument("--n-spaxels", type=int, default=4223)
     ap.add_argument("--out", default=os.path.join(ROOT,
                                                   "muse_rounds_cpu.json"))
     args = ap.parse_args(argv)
@@ -161,18 +203,30 @@ def main(argv=None):
     from massivedatans_tpu.muse.model import load_template_grid
     from massivedatans_tpu.ns.integrator import multi_nested_integrator
     from massivedatans_tpu_torch.config import RunConfig
-    from massivedatans_tpu_torch.muse.pipeline import fit_muse
+    from massivedatans_tpu_torch.muse.pipeline import fit_muse, load_muse_cube
+    from tools import torch_muse_bench as bench
     from tools.torch_muse_validate import build_fixture, chunk_records
 
-    rows = []
+    rows, zhi, fit_kw = [], 0.5, {}
+    if args.cube == "bench":
+        args.options, zhi = ["bench"], bench.ZHI
+        bench_opts = bench_options(args)
+        fit_kw = dict(checkpoint_every=bench_opts["checkpoint_every"])
     with tempfile.TemporaryDirectory() as tmp:
-        cube, tpl, _ = build_fixture(tmp, args.side, args.nspec)
+        if args.cube == "bench":
+            cube_path, reg, tpl = bench.build_bench_cube(
+                tmp, args.n_spaxels, args.nspec)
+            cube = load_muse_cube(cube_path, reg, maxdata=args.n_spaxels,
+                                  bad_windows=None)
+        else:
+            cube, tpl, _ = build_fixture(tmp, args.side, args.nspec)
         md = load_template_grid(tpl, data_wl_nm=cube.wavelength_nm, zlo=0.0,
-                                zhi=0.5)
+                                zhi=zhi)
         problem = make_muse_problem(md, cube.y, cube.var)
         cube_sha = cube_sha256(cube)
         for name in args.options:
-            opts = option_set(name, args.budget, args.cap)
+            opts = (bench_fields(bench_opts) if name == "bench"
+                    else option_set(name, args.budget, args.cap))
             for seed in args.seeds:
                 kw = dict(nlive_points=args.nlive, tolerance=0.5, seed=seed,
                           **opts)
@@ -184,11 +238,13 @@ def main(argv=None):
                         with jax_chunk_records(ck) as per_chunk:
                             res = multi_nested_integrator(
                                 problem, JaxRunConfig(**kw), progress=False,
-                                checkpoint_dir=ck)
+                                checkpoint_dir=ck, **fit_kw)
                     else:
-                        with chunk_records() as per_chunk:
-                            res, _ = fit_muse(cube, tpl, 0.0, 0.5, "FULL",
-                                              RunConfig(**kw), device="cpu")
+                        with chunk_records(group_every=bench.group_every(
+                                args.nlive, problem.ndata)) as per_chunk:
+                            res, _ = fit_muse(cube, tpl, 0.0, zhi, "FULL",
+                                              RunConfig(**kw), device="cpu",
+                                              **fit_kw)
                     rows.append(summary(package, name, seed, opts, res,
                                         time.perf_counter() - t0))
                     print(json.dumps(rows[-1]), flush=True)
@@ -202,10 +258,15 @@ def main(argv=None):
             ratios[f"{name} seed {seed}"] = {
                 k: port[k] / jax[k] for k in ("niter", "ndraws",
                                               "fill_rounds")}
+    shape = (f"tools/muse_bench.py's cube, {problem.ndata} spaxels"
+             if args.cube == "bench" else
+             f"MUSE FULL {args.side}x{args.side} spaxels")
     record = dict(
-        comparison=f"MUSE FULL {args.side}x{args.side} spaxels, nspec "
-                   f"{args.nspec}, nlive {args.nlive}, seeds {args.seeds}: "
-                   f"{' and '.join(args.packages)} on one cube",
+        comparison=f"{shape}, nspec {args.nspec}, nlive {args.nlive}, "
+                   f"seeds {args.seeds}: {' and '.join(args.packages)} on "
+                   "one cube",
+        cube=args.cube, n_spaxels=problem.ndata,
+        options=bench_opts if args.cube == "bench" else None,
         packages=args.packages,
         side=args.side, nspec=args.nspec, nlive=args.nlive,
         seeds=args.seeds, cube_sha256=cube_sha, budget=args.budget,

@@ -4,6 +4,11 @@
     # from a JAX state kept by tools/jax_muse_rounds.py --checkpoint-dir
     JAX_PLATFORMS=cpu python3 tools/muse_rounds_from_state.py \\
         --state muse_rounds_ck/budget_seed1/chunk_00040 --out FILE
+    # from a state of tools/jax_muse_rounds.py --cube bench (its options;
+    # the live-L checks on 32 of the 4,223 spaxels; about 20 min)
+    JAX_PLATFORMS=cpu python3 tools/muse_rounds_from_state.py --cube bench \\
+        --state muse_bench_ck/bench_seed1/chunk_00012 --parts A B \\
+        --batches 100 --live-spaxels 32 --out muse_bench_state_rounds.json
     # a rehearsal at a small size (about a minute)
     JAX_PLATFORMS=cpu python3 tools/muse_rounds_from_state.py --side 4 \\
         --nspec 600 --state DIR --batches 20 --candidates 512 --seeds 1 \\
@@ -246,14 +251,14 @@ def port_config(arrays, **changes):
     return RunConfig(**{**state_options(arrays), **changes})
 
 
-def port_problem(cube, tpl, device="cpu"):
+def port_problem(cube, tpl, device="cpu", zhi=0.5):
     from massivedatans_tpu_torch.config import set_fp32_precision
     from massivedatans_tpu_torch.muse.likelihood import make_muse_problem
     from massivedatans_tpu_torch.muse.model import load_template_grid
 
     set_fp32_precision()
     md = load_template_grid(tpl, data_wl_nm=cube.wavelength_nm, zlo=0.0,
-                            zhi=0.5, device=device)
+                            zhi=zhi, device=device)
     return make_muse_problem(md, cube.y, cube.var)
 
 
@@ -398,9 +403,10 @@ def port_chunks(problem, arrays, pile_capacity, cfg, seed, n_chunks,
 
 # --- the JAX package's measurements ------------------------------------------
 
-def jax_setup(cube, tpl, state_dir, arrays):
-    """The JAX problem, configuration and state (the checkpoint loaded on
-    an ``init_state`` template, reopened like ``arrays``)."""
+def jax_setup(cube, tpl, state_dir, arrays, zhi=0.5, **changes):
+    """The JAX problem, configuration (``state_options`` with
+    ``changes``) and state (the checkpoint loaded on an ``init_state``
+    template, reopened like ``arrays``)."""
     import jax
     import jax.numpy as jnp
 
@@ -411,9 +417,9 @@ def jax_setup(cube, tpl, state_dir, arrays):
     from massivedatans_tpu.ns import engine
 
     md = load_template_grid(tpl, data_wl_nm=cube.wavelength_nm, zlo=0.0,
-                            zhi=0.5)
+                            zhi=zhi)
     problem = make_muse_problem(md, cube.y, cube.var)
-    cfg = RunConfig(**state_options(arrays))
+    cfg = RunConfig(**{**state_options(arrays), **changes})
     template = engine.init_state(problem, jax.random.key(0), cfg)
     state = ckpt.load_state(state_dir, template)
     state = state._replace(running=jnp.asarray(arrays["running"]),
@@ -536,13 +542,24 @@ def jax_chunks(problem, cfg, state, seed, n_chunks):
 
 # --- (A) and the cube check --------------------------------------------------
 
-def live_check(pproblem, cube, arrays, cancel, jproblem=None):
-    """Each running spaxel's ``live_L`` recomputed by the port (on its
-    problem's device), by the JAX package (``jproblem``, if given) and in
-    float64, against the stored values; held at ``cancel`` * yy."""
+def checked_spaxels(arrays, limit=0):
+    """The running spaxels, or ``limit`` of them evenly spaced (each
+    check scores every spaxel's live points against all D spaxels)."""
+    running = np.flatnonzero(arrays["running"])
+    if limit and len(running) > limit:
+        running = running[np.linspace(0, len(running) - 1, limit)
+                          .astype(int)]
+    return running
+
+
+def live_check(pproblem, cube, arrays, cancel, jproblem=None, limit=0):
+    """Each running spaxel's ``live_L`` (``limit``: of that many,
+    ``checked_spaxels``) recomputed by the port (on its problem's device),
+    by the JAX package (``jproblem``, if given) and in float64, against
+    the stored values; held at ``cancel`` * yy."""
     import torch
 
-    running = np.flatnonzero(arrays["running"])
+    running = checked_spaxels(arrays, limit)
     live_idx, live_L = arrays["live_idx"], arrays["live_L"]
     device = pproblem.yy.device
     worst, over = {}, {}
@@ -569,8 +586,9 @@ def live_check(pproblem, cube, arrays, cancel, jproblem=None):
                 held=not any(over.values()))
 
 
-def live_decisions(pproblem, cube, arrays, cancel, jproblem=None):
-    """The likelihood at the contour: each running spaxel's live points
+def live_decisions(pproblem, cube, arrays, cancel, jproblem=None, limit=0):
+    """The likelihood at the contour: each running spaxel's (``limit``: of
+    that many, ``checked_spaxels``) live points
     scored by the port (on its problem's device), by the JAX package
     (``jproblem``, if given) and in float64 (all spaxels' columns held at
     ``cancel`` * yy), and, per running spaxel, the decisions ``L > t`` of
@@ -579,7 +597,7 @@ def live_decisions(pproblem, cube, arrays, cancel, jproblem=None):
     packages and between each package and float64."""
     import torch
 
-    running = np.flatnonzero(arrays["running"])
+    running = checked_spaxels(arrays, limit)
     live_idx, live_L = arrays["live_idx"], arrays["live_L"]
     thresholds = np.sort(live_L, axis=0)[:arrays["shelves.idx"].shape[0]]
     names = ("torch",) if jproblem is None else ("jax", "torch")
@@ -665,25 +683,50 @@ def decisions(jproblem, pproblem, cube, pstate, cfg, n, seed=7):
         yy_max=float(yy.numpy()[run].max()))
 
 
+def make_cube(tmp, kind, side, nspec, n_spaxels):
+    """The state's cube, built in ``tmp`` with the port's ``synth``:
+    ``(cube, templates, zhi, changes)``, ``changes`` the options that
+    differ from ``OPTIONS``. ``fixture``: ``build_fixture`` at ``side`` x
+    ``side``; ``bench``: ``tools/torch_muse_bench.py``'s cube of
+    ``n_spaxels`` spaxels and its options, without the wall-clock budget
+    and the cap (the fields ``tools/jax_muse_rounds.py --cube bench``
+    runs)."""
+    if kind == "fixture":
+        from tools.torch_muse_validate import build_fixture
+
+        cube, tpl, _ = build_fixture(tmp, side, nspec)
+        return cube, tpl, 0.5, {}
+    from massivedatans_tpu_torch.muse.pipeline import load_muse_cube
+    from tools import torch_muse_bench as bench
+
+    cube_path, reg, tpl = bench.build_bench_cube(tmp, n_spaxels, nspec)
+    cube = load_muse_cube(cube_path, reg, maxdata=n_spaxels,
+                          bad_windows=None)
+    fields = bench.config_fields(bench.defaults())
+    changes = {k: v for k, v in fields.items() if k not in (
+        "nlive_points", "seed", "tolerance", "max_samples")}
+    return cube, tpl, bench.ZHI, changes
+
+
 def seed_chunks(job):
     """(C) for one seed in a process of its own: both engines' chunks from
-    the state, on a fixture built here."""
-    state_dir, side, nspec, seed, n_chunks, threads = job
+    the state, on a cube built here."""
+    state_dir, cube_args, seed, n_chunks, threads = job
     sys.path.insert(0, ROOT)
     import torch
-
-    from tools.torch_muse_validate import build_fixture
 
     torch.set_num_threads(threads)
     raw, pile_cap = state_arrays(state_dir)
     arrays = reopen(raw)
     with tempfile.TemporaryDirectory() as tmp:
-        cube, tpl, _ = build_fixture(tmp, side, nspec)
-        pproblem = port_problem(cube, tpl)
-        jproblem, jcfg, jstate = jax_setup(cube, tpl, state_dir, arrays)
+        cube, tpl, zhi, changes = make_cube(tmp, *cube_args)
+        pproblem = port_problem(cube, tpl, zhi=zhi)
+        jproblem, jcfg, jstate = jax_setup(cube, tpl, state_dir, arrays,
+                                           zhi, **changes)
     out = dict(jax=jax_chunks(jproblem, jcfg, jstate, seed, n_chunks),
                torch=port_chunks(pproblem, arrays, pile_cap,
-                                 port_config(arrays), seed, n_chunks))
+                                 port_config(arrays, **changes), seed,
+                                 n_chunks))
     print(json.dumps(dict(seed=seed, jax=out["jax"][-1],
                           torch=out["torch"][-1])), flush=True)
     return out
@@ -695,9 +738,18 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--state", default=STATE_DIR,
                     help="directory of a JAX checkpoint's state.npz")
+    ap.add_argument("--cube", choices=("fixture", "bench"),
+                    default="fixture",
+                    help="bench: tools/torch_muse_bench.py's cube and "
+                         "options (a state of tools/jax_muse_rounds.py "
+                         "--cube bench)")
     ap.add_argument("--side", type=int, default=10)
+    ap.add_argument("--n-spaxels", type=int, default=4223)
     ap.add_argument("--nspec", type=int, default=3600)
     ap.add_argument("--candidates", type=int, default=4096)
+    ap.add_argument("--live-spaxels", type=int, default=0,
+                    help="check the live L and the contour decisions on "
+                         "this many running spaxels (0: all)")
     ap.add_argument("--batches", type=int, default=200)
     ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3, 4, 5])
     ap.add_argument("--chunks", type=int, default=5)
@@ -712,9 +764,9 @@ def main(argv=None):
 
     from chip_smoke import MUSE_CANCEL
     from tools.jax_muse_rounds import cube_sha256
-    from tools.torch_muse_validate import build_fixture
 
     torch.manual_seed(0)
+    cube_args = (args.cube, args.side, args.nspec, args.n_spaxels)
     state_file = os.path.join(args.state, "state.npz")
     raw, pile_cap = state_arrays(args.state)
     arrays = reopen(raw)
@@ -737,23 +789,25 @@ def main(argv=None):
         pool = multiprocessing.get_context("spawn").Pool(len(args.seeds))
         threads = max(1, (os.cpu_count() or 1) // len(args.seeds))
         pending = pool.map_async(seed_chunks, [
-            (args.state, args.side, args.nspec, seed, args.chunks, threads)
+            (args.state, cube_args, seed, args.chunks, threads)
             for seed in args.seeds])
         t_c = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        cube, tpl, _ = build_fixture(tmp, args.side, args.nspec)
-        rec.update(side=args.side, nspec=args.nspec,
-                   cube_sha256=cube_sha256(cube))
-        pproblem = port_problem(cube, tpl)
-        jproblem, jcfg, jstate = jax_setup(cube, tpl, args.state, arrays)
-        cfg = port_config(arrays)
+        cube, tpl, zhi, changes = make_cube(tmp, *cube_args)
+        rec.update(cube=args.cube, side=args.side, nspec=args.nspec,
+                   n_spaxels=cube.y.shape[1], cube_sha256=cube_sha256(cube),
+                   options=dict(rec["options"], **changes))
+        pproblem = port_problem(cube, tpl, zhi=zhi)
+        jproblem, jcfg, jstate = jax_setup(cube, tpl, args.state, arrays,
+                                           zhi, **changes)
+        cfg = port_config(arrays, **changes)
         pstate = port_labels(port_state(arrays, pile_cap), cfg.nlive_points)
         jstate = jax_labels(jstate, cfg.nlive_points)
         rec["n_groups"] = dict(jax=int(jstate.n_groups),
                                torch=pstate.n_groups)
         t0 = time.perf_counter()
         rec["live_check"] = live_check(pproblem, cube, arrays, MUSE_CANCEL,
-                                       jproblem)
+                                       jproblem, args.live_spaxels)
         print(json.dumps(dict(live_check=rec["live_check"])), flush=True)
         if not rec["live_check"]["held"]:
             rec["verdict"] = "the fixture is not the state's cube"
@@ -764,7 +818,8 @@ def main(argv=None):
             rec["A"] = decisions(jproblem, pproblem, cube, pstate, cfg,
                                  args.candidates)
             rec["A"]["at_the_contour"] = live_decisions(
-                pproblem, cube, arrays, MUSE_CANCEL, jproblem)
+                pproblem, cube, arrays, MUSE_CANCEL, jproblem,
+                args.live_spaxels)
             rec["A"]["wall_s"] = time.perf_counter() - t0
             print(json.dumps(dict(A=rec["A"])), flush=True)
         t0 = time.perf_counter()

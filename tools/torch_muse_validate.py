@@ -303,13 +303,16 @@ def late_run(pieces, eval_batch):
 
 
 @contextlib.contextmanager
-def chunk_records():
+def chunk_records(first_chunk=0, group_every=1):
     """Record each chunk of the port's fits made inside the block: a list
     of dicts (chunk, iterations, evaluations and fill rounds so far,
     spaxels running, member overflow, the group count of the labels made
     from its report, host wall since the block began), in chunk order.
     It reads each chunk's state when the chunk has finished, which adds a
-    host read and changes nothing in the fit."""
+    host read and changes nothing in the fit. ``first_chunk``: the chunks
+    a resumed fit starts after; ``group_every``: the integrator's label
+    cadence (labels come from the reports of the chunks dispatched at a
+    multiple of it), by which each group count finds its chunk."""
     from massivedatans_tpu_torch.ns import engine, subsets
 
     rows, groups, t0 = [], [], time.perf_counter()
@@ -337,8 +340,12 @@ def chunk_records():
     finally:
         engine.ChunkRunner.finish = finish
         subsets.component_labels = labels
-        for r, g in zip(rows, groups + [None] * len(rows)):
-            r["n_groups"] = g
+        first = -(-first_chunk // group_every) * group_every - first_chunk
+        for i, r in enumerate(rows):
+            r["chunk"] += first_chunk
+            k, off = divmod(i - first, group_every)
+            r["n_groups"] = (groups[k] if i >= first and off == 0
+                             and k < len(groups) else None)
 
 
 def _launches(neighbors):
@@ -411,7 +418,7 @@ def main(argv=None):
             tmp, args.side, args.nspec, flux=tuple(args.flux), n_wl=args.n_wl)
         fixture_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        with chunk_records() as per_chunk:
+        with chunk_records(first_chunk=done) as per_chunk:
             result, problem = fit_muse(cube, tpl, 0.0, 0.5, "FULL", cfg,
                                        device=args.device, progress=True,
                                        **run_opts)
@@ -433,7 +440,7 @@ def main(argv=None):
         chunk_path=stats["chunk_path"], launches=_launches(neighbors),
         wall_s=wall, fixture_s=fixture_s, timing=stats["timing"],
         interrupted=stats["interrupted"],
-        per_chunk=[dict(r, chunk=r["chunk"] + done) for r in per_chunk])
+        per_chunk=per_chunk)
     pieces = []
     if ck is not None:
         with open(os.path.join(ck, PIECES), "a") as fh:
