@@ -143,6 +143,24 @@ def test_resume_sums_the_legs(tmp_path, capsys):
                if r["running"] > 0)
 
 
+def test_resume_refuses_another_run(tmp_path, capsys):
+    """A checkpoint directory resumes only the run that made it: other
+    options, or a checkpoint that this tool did not start, are refused
+    before any chunk runs."""
+    ck = str(tmp_path / "ck")
+    args = TINY + ["--chunk-iters", "20", "--checkpoint-every", "1",
+                   "--checkpoint-dir", ck]
+    assert bench.main(args + ["--max-chunks", "1"]) == bench.INTERRUPTED
+    capsys.readouterr()
+    with pytest.raises(SystemExit, match="other options"):
+        bench.main(args + ["--seed", "2"])
+    with open(os.path.join(ck, bench.LEGS)) as fh:
+        assert len(fh.readlines()) == 1
+    os.remove(os.path.join(ck, bench.RUN))
+    with pytest.raises(SystemExit, match="another run"):
+        bench.main(args)
+
+
 def test_group_counts_find_their_chunks_under_a_cadence(tmp_path):
     """At a label cadence, each group count sits in the row of the chunk
     whose report made it (``chunk_records(first_chunk, group_every)``),
@@ -212,3 +230,34 @@ def test_both_packages_count_alike_at_muse_bench_options(tmp_path):
     held = bench.held_to_record(line, rec)
     assert held["jax_seed"] == 1 and all(held["held"].values())
     assert held["per_chunk"]
+
+
+def test_a_shorter_fit_is_held_at_its_cap_chunk():
+    """A fit capped below the JAX record's cap is held against the
+    record's chunk that ends at the fit's cap, not the record's totals
+    (the fit's own last chunk, its one iteration past the cap, is not
+    compared)."""
+    def row(chunk, niter, ndraws, rounds):
+        return dict(chunk=chunk, niter=niter, ndraws=ndraws,
+                    fill_rounds=rounds)
+
+    record = dict(cap=1200, fits=[dict(
+        seed=1, niter=1201, ndraws=90000, fill_rounds=9000,
+        per_chunk=[row(1, 400, 3000, 30), row(2, 800, 6000, 60),
+                   row(3, 1200, 80000, 8000), row(4, 1201, 90000, 9000)])])
+    line = dict(options=dict(seed=1, cap=800), niter=801, ndraws=7000,
+                fill_rounds=80, per_chunk=[row(1, 400, 3300, 33),
+                                           row(2, 800, 6600, 66),
+                                           row(3, 801, 7000, 80)])
+    held = bench.held_to_record(line, record)
+    assert held["at_niter"] == 800
+    assert held["jax"] == dict(niter=800, ndraws=6000, fill_rounds=60)
+    assert held["port"] == dict(niter=800, ndraws=6600, fill_rounds=66)
+    assert held["ratios"] == dict(niter=1.0, ndraws=1.1, fill_rounds=1.1)
+    assert all(held["held"].values())
+    # at the record's own cap the totals are compared
+    full = dict(line, options=dict(seed=1, cap=1200), niter=1201,
+                ndraws=200000, fill_rounds=9000)
+    held = bench.held_to_record(full, record)
+    assert held["ratios"]["ndraws"] == 200000 / 90000
+    assert not held["held"]["ndraws"] and held["held"]["fill_rounds"]

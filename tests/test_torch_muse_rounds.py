@@ -263,3 +263,54 @@ def test_state_tool_takes_the_bench_cube(tmp_path):
     assert opts["proposal_batch"] == opts["column_proposal_batch"] == 8192
     assert opts["column_focus_fallback_rounds"] == 2
     assert set(rec["B"]["jax"]) == set(rec["B"]["torch"]) == set(mrs.KINDS)
+
+
+def test_state_tool_runs_each_package_alone_and_combines(tmp_path):
+    """(C) one package at a time (``--packages``: the JAX package on the
+    CPU, the port where its card is), then ``--combine``: the seeds both
+    ran, each package's chunks as its own run made them, the totals
+    compared; a record of another state is refused."""
+    from tools import jax_muse_rounds
+
+    ck = str(tmp_path / "ck")
+    assert jax_muse_rounds.main([
+        "--cube", "bench", "--n-spaxels", "12", "--nspec", "64", "--nlive",
+        "40", "--cap", "120", "--seeds", "1", "--packages", "jax",
+        "--checkpoint-dir", ck, "--out", str(tmp_path / "r.json")]) == 0
+    common = ["--cube", "bench", "--n-spaxels", "12", "--nspec", "64",
+              "--state", os.path.join(ck, "bench_seed1"), "--parts", "C",
+              "--chunks", "1", "--live-spaxels", "4"]
+    outs = {p: str(tmp_path / f"{p}.json") for p in ("jax", "torch")}
+    assert mrs.main(common + ["--packages", "jax", "--seeds", "2",
+                              "--out", outs["jax"]]) == 0
+    assert mrs.main(common + ["--packages", "torch", "--seeds", "2",
+                              "--out", outs["torch"]]) == 0
+    recs = {}
+    for p, path in outs.items():
+        with open(path) as fh:
+            recs[p] = json.load(fh)
+        assert list(recs[p]["C"]["runs"]) == [p]
+    assert "live_check" in recs["jax"] and "live_check" not in recs["torch"]
+    assert recs["jax"]["state_sha256"] == recs["torch"]["state_sha256"]
+
+    def record(name, rec):
+        with open(tmp_path / name, "w") as fh:
+            json.dump(rec, fh)
+        return str(tmp_path / name)
+
+    # a second record of the port's on a seed that the JAX package lacks,
+    # of more chunks: the seeds both ran, the chunks all ran
+    (run,) = recs["torch"]["C"]["runs"]["torch"]
+    extra = record("torch3.json", dict(recs["torch"], C=dict(
+        recs["torch"]["C"], seeds=[3], chunks=2,
+        runs=dict(torch=[run + run]))))
+    comb = mrs.combine([outs["jax"], outs["torch"], extra],
+                       str(tmp_path / "c.json"))
+    assert comb["C"]["seeds"] == [2] and comb["C"]["chunks"] == 1
+    for p in outs:
+        assert comb["C"]["runs"][p] == recs[p]["C"]["runs"][p]
+    assert set(comb["C"]["totals"]) == set(mrs.TOTALS)
+    assert comb["state_sha256"] == recs["jax"]["state_sha256"]
+    other = record("other.json", dict(recs["torch"], state_sha256="0" * 64))
+    with pytest.raises(SystemExit, match="state_sha256"):
+        mrs.combine([outs["jax"], other], str(tmp_path / "x.json"))

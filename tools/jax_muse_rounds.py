@@ -203,7 +203,7 @@ def main(argv=None):
     from massivedatans_tpu.muse.model import load_template_grid
     from massivedatans_tpu.ns.integrator import multi_nested_integrator
     from massivedatans_tpu_torch.config import RunConfig
-    from massivedatans_tpu_torch.muse.pipeline import fit_muse, load_muse_cube
+    from massivedatans_tpu_torch.muse.pipeline import fit_muse
     from tools import torch_muse_bench as bench
     from tools.torch_muse_validate import build_fixture, chunk_records
 
@@ -214,10 +214,8 @@ def main(argv=None):
         fit_kw = dict(checkpoint_every=bench_opts["checkpoint_every"])
     with tempfile.TemporaryDirectory() as tmp:
         if args.cube == "bench":
-            cube_path, reg, tpl = bench.build_bench_cube(
-                tmp, args.n_spaxels, args.nspec)
-            cube = load_muse_cube(cube_path, reg, maxdata=args.n_spaxels,
-                                  bad_windows=None)
+            cube, tpl = bench.load_bench_cube(tmp, args.n_spaxels,
+                                              args.nspec)
         else:
             cube, tpl, _ = build_fixture(tmp, args.side, args.nspec)
         md = load_template_grid(tpl, data_wl_nm=cube.wavelength_nm, zlo=0.0,

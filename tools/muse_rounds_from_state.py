@@ -9,6 +9,14 @@
     JAX_PLATFORMS=cpu python3 tools/muse_rounds_from_state.py --cube bench \\
         --state muse_bench_ck/bench_seed1/chunk_00012 --parts A B \\
         --batches 100 --live-spaxels 32 --out muse_bench_state_rounds.json
+    # (C) a package at a time: the JAX package on the CPU, the port on a
+    # card (no JAX there: no cube check, no (A) or (B)), then compared
+    JAX_PLATFORMS=cpu python3 tools/muse_rounds_from_state.py --cube bench \
+        --state DIR --parts C --packages jax --seeds 1 --out j1.json
+    python3 tools/muse_rounds_from_state.py --cube bench --state DIR \
+        --parts C --packages torch --device cuda --seeds 1 2 --out t.json
+    python3 tools/muse_rounds_from_state.py --combine j1.json t.json \
+        --out c.json
     # a rehearsal at a small size (about a minute)
     JAX_PLATFORMS=cpu python3 tools/muse_rounds_from_state.py --side 4 \\
         --nspec 600 --state DIR --batches 20 --candidates 512 --seeds 1 \\
@@ -60,7 +68,10 @@ Then, in order (each package's own functions on the same state):
    each chunk's live points as the integrators make them: iterations, fill
    rounds, evaluations and running spaxels after each chunk, one process
    per seed. The totals compared are what the chunks added to the
-   state's counts, and the spaxels still running.
+   state's counts, and the spaxels still running. ``--packages`` runs
+   one package's chunks alone (the port's on ``--device``), and
+   ``--combine`` compares such records from the same state and cube on
+   the seeds both ran, over the chunks all ran (``combine``).
 
 Means come with standard errors; a kind (or a total) ``differs`` when the
 means part by more than 4 standard errors and by more than 10 % of the
@@ -536,6 +547,8 @@ def jax_chunks(problem, cfg, state, seed, n_chunks):
                          member_overflow=int(state.member_overflow),
                          n_groups=int(state.n_groups),
                          wall_s=time.perf_counter() - t0))
+        print(json.dumps(dict(package="jax", seed=seed, **rows[-1])),
+              flush=True)
         state = jax_labels(state, cfg.nlive_points)
     return rows
 
@@ -696,12 +709,9 @@ def make_cube(tmp, kind, side, nspec, n_spaxels):
 
         cube, tpl, _ = build_fixture(tmp, side, nspec)
         return cube, tpl, 0.5, {}
-    from massivedatans_tpu_torch.muse.pipeline import load_muse_cube
     from tools import torch_muse_bench as bench
 
-    cube_path, reg, tpl = bench.build_bench_cube(tmp, n_spaxels, nspec)
-    cube = load_muse_cube(cube_path, reg, maxdata=n_spaxels,
-                          bad_windows=None)
+    cube, tpl = bench.load_bench_cube(tmp, n_spaxels, nspec)
     fields = bench.config_fields(bench.defaults())
     changes = {k: v for k, v in fields.items() if k not in (
         "nlive_points", "seed", "tolerance", "max_samples")}
@@ -709,27 +719,77 @@ def make_cube(tmp, kind, side, nspec, n_spaxels):
 
 
 def seed_chunks(job):
-    """(C) for one seed in a process of its own: both engines' chunks from
-    the state, on a cube built here."""
-    state_dir, cube_args, seed, n_chunks, threads = job
+    """(C) for one seed (on the CPU in a process of its own): the chunks
+    of each package of ``packages`` from the state, on a cube built here;
+    the port's on ``device``. Each chunk's counts are printed as it
+    ends."""
+    state_dir, cube_args, seed, n_chunks, threads, packages, device = job
     sys.path.insert(0, ROOT)
     import torch
 
     torch.set_num_threads(threads)
     raw, pile_cap = state_arrays(state_dir)
     arrays = reopen(raw)
+    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         cube, tpl, zhi, changes = make_cube(tmp, *cube_args)
-        pproblem = port_problem(cube, tpl, zhi=zhi)
-        jproblem, jcfg, jstate = jax_setup(cube, tpl, state_dir, arrays,
-                                           zhi, **changes)
-    out = dict(jax=jax_chunks(jproblem, jcfg, jstate, seed, n_chunks),
-               torch=port_chunks(pproblem, arrays, pile_cap,
-                                 port_config(arrays, **changes), seed,
-                                 n_chunks))
-    print(json.dumps(dict(seed=seed, jax=out["jax"][-1],
-                          torch=out["torch"][-1])), flush=True)
+        if "jax" in packages:
+            jproblem, jcfg, jstate = jax_setup(cube, tpl, state_dir, arrays,
+                                               zhi, **changes)
+        if "torch" in packages:
+            pproblem = port_problem(cube, tpl, device, zhi=zhi)
+    if "jax" in packages:
+        out["jax"] = jax_chunks(jproblem, jcfg, jstate, seed, n_chunks)
+    if "torch" in packages:
+        out["torch"] = port_chunks(pproblem, arrays, pile_cap,
+                                   port_config(arrays, **changes), seed,
+                                   n_chunks, device)
+    print(json.dumps(dict(seed=seed, **{p: r[-1] for p, r in out.items()})),
+          flush=True)
     return out
+
+
+def combine(paths, out):
+    """One record of (C) from this tool's records ``paths``, each of one
+    package's runs (``--packages``) from the same state file and cube, on
+    seeds of its own: the seeds that both packages ran, their first
+    chunks (as many as every record ran), and the totals compared.
+    Returns the record."""
+    recs = []
+    for path in paths:
+        with open(path) as fh:
+            recs.append(json.load(fh))
+    first = recs[0]
+    for r in recs[1:]:
+        for k in ("state_sha256", "cube_sha256"):
+            if r[k] != first[k]:
+                raise SystemExit(f"another {k} in the records")
+    chunks = min(r["C"]["chunks"] for r in recs)
+    by_seed = {"jax": {}, "torch": {}}
+    for r in recs:
+        for p, runs in r["C"]["runs"].items():
+            by_seed[p].update((s, run[:chunks])
+                              for s, run in zip(r["C"]["seeds"], runs))
+    seeds = sorted(set(by_seed["jax"]) & set(by_seed["torch"]))
+    runs = {p: [by_seed[p][s] for s in seeds] for p in by_seed}
+    rec = {k: first[k] for k in ("state", "state_sha256", "iteration",
+                                 "running", "cube", "n_spaxels",
+                                 "cube_sha256", "options")}
+    rec["C"] = dict(seeds=seeds, chunks=chunks, runs=runs,
+                    start=first["C"]["start"],
+                    totals=compare_totals(runs["jax"], runs["torch"],
+                                          first["C"]["start"]),
+                    records=[dict(file=os.path.relpath(p, ROOT),
+                                  run=r["run"], seeds=r["C"]["seeds"],
+                                  chunks=r["C"]["chunks"])
+                             for p, r in zip(paths, recs)])
+    rec["differences"] = dict(C=sorted(
+        k for k, v in rec["C"]["totals"].items() if v["differs"]))
+    with open(out, "w") as fh:
+        json.dump(rec, fh, indent=1)
+    print(json.dumps(dict(differences=rec["differences"], seeds=seeds,
+                          file=out)), flush=True)
+    return rec
 
 
 # --- main --------------------------------------------------------------------
@@ -756,14 +816,29 @@ def main(argv=None):
     ap.add_argument("--parts", nargs="+", choices=("A", "B", "C"),
                     default=["A", "B", "C"],
                     help="what to measure after the cube check")
+    ap.add_argument("--packages", nargs="+", choices=("jax", "torch"),
+                    default=["jax", "torch"],
+                    help="(C)'s packages; without jax only (C) runs, "
+                         "without the cube check")
+    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"),
+                    help="the port's device in (C)")
+    ap.add_argument("--combine", nargs="+", default=None, metavar="FILE",
+                    help="measure nothing: compare the (C) runs of these "
+                         "records of one package each (see combine)")
     ap.add_argument("--out", default=os.path.join(ROOT,
                                                   "muse_state_rounds.json"))
     args = ap.parse_args(argv)
+    if args.combine:
+        combine(args.combine, args.out)
+        return 0
+    if "jax" not in args.packages and args.parts != ["C"]:
+        ap.error("without jax only --parts C runs")
+    if args.device == "cuda" and args.packages != ["torch"]:
+        ap.error("--device cuda runs the port alone (--packages torch)")
     sys.path.insert(0, ROOT)
     import torch
 
-    from chip_smoke import MUSE_CANCEL
-    from tools.jax_muse_rounds import cube_sha256
+    from tools.torch_muse_bench import cube_sha256
 
     torch.manual_seed(0)
     cube_args = (args.cube, args.side, args.nspec, args.n_spaxels)
@@ -779,79 +854,101 @@ def main(argv=None):
         empty=int((arrays["running"]
                    & (arrays["shelves.count"] == 0)).sum()),
         pile_size=int(arrays["pile_size"]), options=state_options(arrays),
-        run="CPU runs of both packages (walls are CPU walls)")
+        run="CPU runs of " + (
+            "both packages" if len(args.packages) == 2 else
+            "the JAX package" if args.packages == ["jax"] else "the port")
+        + " (walls are CPU walls)")
     t_all = time.perf_counter()
     if "C" in args.parts:
         # one process per seed: the port's eager CPU chunks are slow, and
-        # they run beside (A) and (B) here
+        # they run beside (A) and (B) here; on a card its kernels are
+        # built once, before the seeds' processes load them
         import multiprocessing
 
+        if args.device == "cuda":
+            from massivedatans_tpu_torch.ops import _build
+
+            _build.load()
+            _build.load_host()
+            rec["run"] = f"the port on {torch.cuda.get_device_name(0)}"
         pool = multiprocessing.get_context("spawn").Pool(len(args.seeds))
         threads = max(1, (os.cpu_count() or 1) // len(args.seeds))
         pending = pool.map_async(seed_chunks, [
-            (args.state, cube_args, seed, args.chunks, threads)
-            for seed in args.seeds])
+            (args.state, cube_args, seed, args.chunks, threads,
+             args.packages, args.device) for seed in args.seeds])
         t_c = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         cube, tpl, zhi, changes = make_cube(tmp, *cube_args)
         rec.update(cube=args.cube, side=args.side, nspec=args.nspec,
                    n_spaxels=cube.y.shape[1], cube_sha256=cube_sha256(cube),
                    options=dict(rec["options"], **changes))
-        pproblem = port_problem(cube, tpl, zhi=zhi)
-        jproblem, jcfg, jstate = jax_setup(cube, tpl, args.state, arrays,
-                                           zhi, **changes)
-        cfg = port_config(arrays, **changes)
-        pstate = port_labels(port_state(arrays, pile_cap), cfg.nlive_points)
-        jstate = jax_labels(jstate, cfg.nlive_points)
-        rec["n_groups"] = dict(jax=int(jstate.n_groups),
-                               torch=pstate.n_groups)
-        t0 = time.perf_counter()
-        rec["live_check"] = live_check(pproblem, cube, arrays, MUSE_CANCEL,
-                                       jproblem, args.live_spaxels)
-        print(json.dumps(dict(live_check=rec["live_check"])), flush=True)
-        if not rec["live_check"]["held"]:
-            rec["verdict"] = "the fixture is not the state's cube"
-            with open(args.out, "w") as fh:
-                json.dump(rec, fh, indent=1)
-            return 1
-        if "A" in args.parts:
-            rec["A"] = decisions(jproblem, pproblem, cube, pstate, cfg,
-                                 args.candidates)
-            rec["A"]["at_the_contour"] = live_decisions(
-                pproblem, cube, arrays, MUSE_CANCEL, jproblem,
-                args.live_spaxels)
-            rec["A"]["wall_s"] = time.perf_counter() - t0
-            print(json.dumps(dict(A=rec["A"])), flush=True)
-        t0 = time.perf_counter()
-        if "B" in args.parts:
-            kinds = dict(jax=jax_kinds(jproblem, jcfg, jstate, args.batches),
-                         torch=port_kinds(pproblem, pstate, cfg,
-                                          args.batches))
-            rec["B"] = dict(kinds, differs=compare_kinds(kinds["jax"],
-                                                         kinds["torch"]),
-                            wall_s=time.perf_counter() - t0)
-            print(json.dumps(dict(B=rec["B"])), flush=True)
-        if "C" in args.parts:
-            by_seed = pending.get()
-            runs = {p: [r[p] for r in by_seed] for p in ("jax", "torch")}
-            start = state_start(arrays)
-            rec["C"] = dict(seeds=args.seeds, chunks=args.chunks, runs=runs,
-                            start=start, totals=compare_totals(
-                                runs["jax"], runs["torch"], start),
-                            wall_s=time.perf_counter() - t_c)
-            pool.close()
+        if "jax" in args.packages:
+            measure_on_cpu(rec, args, cube, tpl, zhi, changes, arrays,
+                           pile_cap)
+            if not rec["live_check"]["held"]:
+                rec["verdict"] = "the fixture is not the state's cube"
+                with open(args.out, "w") as fh:
+                    json.dump(rec, fh, indent=1)
+                return 1
+    if "C" in args.parts:
+        by_seed = pending.get()
+        pool.close()
+        runs = {p: [r[p] for r in by_seed] for p in args.packages}
+        rec["C"] = dict(seeds=args.seeds, chunks=args.chunks,
+                        packages=args.packages, runs=runs,
+                        start=state_start(arrays),
+                        wall_s=time.perf_counter() - t_c)
+        if len(args.packages) == 2:
+            rec["C"]["totals"] = compare_totals(
+                rec["C"]["runs"]["jax"], rec["C"]["runs"]["torch"],
+                rec["C"]["start"])
     rec["differences"] = dict(
         A=rec["A"]["decisions_differ"] if "A" in rec else None,
         B=sorted(f"{kind}.{k}" for kind, d in rec["B"]["differs"].items()
                  for k, v in d.items() if v) if "B" in rec else None,
         C=sorted(k for k, v in rec["C"]["totals"].items() if v["differs"])
-        if "C" in rec else None)
+        if "totals" in rec.get("C", {}) else None)
     rec["wall_s"] = time.perf_counter() - t_all
     with open(args.out, "w") as fh:
         json.dump(rec, fh, indent=1)
     print(json.dumps(dict(differences=rec["differences"], file=args.out)),
           flush=True)
     return 0
+
+
+def measure_on_cpu(rec, args, cube, tpl, zhi, changes, arrays, pile_cap):
+    """The cube check, then (A) and (B) as ``args.parts`` asks, both
+    packages on the CPU; each into ``rec``."""
+    from chip_smoke import MUSE_CANCEL
+
+    pproblem = port_problem(cube, tpl, zhi=zhi)
+    jproblem, jcfg, jstate = jax_setup(cube, tpl, args.state, arrays, zhi,
+                                       **changes)
+    cfg = port_config(arrays, **changes)
+    pstate = port_labels(port_state(arrays, pile_cap), cfg.nlive_points)
+    jstate = jax_labels(jstate, cfg.nlive_points)
+    rec["n_groups"] = dict(jax=int(jstate.n_groups), torch=pstate.n_groups)
+    t0 = time.perf_counter()
+    rec["live_check"] = live_check(pproblem, cube, arrays, MUSE_CANCEL,
+                                   jproblem, args.live_spaxels)
+    print(json.dumps(dict(live_check=rec["live_check"])), flush=True)
+    if not rec["live_check"]["held"]:
+        return
+    if "A" in args.parts:
+        rec["A"] = decisions(jproblem, pproblem, cube, pstate, cfg,
+                             args.candidates)
+        rec["A"]["at_the_contour"] = live_decisions(
+            pproblem, cube, arrays, MUSE_CANCEL, jproblem, args.live_spaxels)
+        rec["A"]["wall_s"] = time.perf_counter() - t0
+        print(json.dumps(dict(A=rec["A"])), flush=True)
+    t0 = time.perf_counter()
+    if "B" in args.parts:
+        kinds = dict(jax=jax_kinds(jproblem, jcfg, jstate, args.batches),
+                     torch=port_kinds(pproblem, pstate, cfg, args.batches))
+        rec["B"] = dict(kinds, differs=compare_kinds(kinds["jax"],
+                                                     kinds["torch"]),
+                        wall_s=time.perf_counter() - t0)
+        print(json.dumps(dict(B=rec["B"])), flush=True)
 
 
 if __name__ == "__main__":

@@ -37,7 +37,9 @@ memory, both kernels' launches, every option, the cube's SHA-256, and a
 record per chunk (``torch_muse_validate.chunk_records``); ``--out``
 writes it too. The wall is the fits' (the cube's making and the kernels'
 build excluded), summed over the legs of a run resumed from
-``--checkpoint-dir`` (each leg appends to ``legs.jsonl`` there). Beside it
+``--checkpoint-dir`` (each leg appends to ``legs.jsonl`` there; the
+first writes the options and the cube's SHA-256 to ``bench_run.json``,
+and a later leg with others is refused). Beside it
 stand the counts of the JAX package's committed run at this spaxel count
 (``results/muse_N.stats.json``; its walls were TPU walls and are not
 printed). The paper's 140 h for 4,223 spaxels was the original code's, on
@@ -67,6 +69,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INTERRUPTED = 75
 LEGS = "legs.jsonl"
+RUN = "bench_run.json"  # the options and cube of a --checkpoint-dir's run
 RATIO_BAR = (0.5, 2.0)
 ZLO, ZHI = 0.0, 0.3
 N_WL = 1200
@@ -153,6 +156,18 @@ def build_bench_cube(tmp, n_spaxels=4223, nspec=3600):
     return cube_path, region_path, tpl
 
 
+def load_bench_cube(tmp, n_spaxels=4223, nspec=3600):
+    """``build_bench_cube`` loaded as ``run_musefit`` loads it (``maxdata``
+    the spaxel count, the real-MUSE bad windows): ``(cube, templates)``."""
+    from massivedatans_tpu_torch.muse.pipeline import load_muse_cube
+
+    cube_path, region_path, tpl = build_bench_cube(tmp, n_spaxels, nspec)
+    cube = load_muse_cube(cube_path, region_path, maxdata=n_spaxels,
+                          bad_windows=None)
+    assert cube.y.shape[1] == n_spaxels, cube.y.shape
+    return cube, tpl
+
+
 def cube_sha256(cube) -> str:
     """SHA-256 of a loaded cube's data and variance as little-endian
     float64."""
@@ -183,21 +198,54 @@ def jax_counts(n_spaxels: int):
 def held_to_record(line: dict, record: dict) -> dict:
     """The fit's counts over the JAX CPU record's (its seed-matched fit,
     else its first), in total and per chunk, and whether each total lies
-    within ``RATIO_BAR``."""
+    within ``RATIO_BAR``. A fit capped below the record's cap is held at
+    the chunk that ends at its cap, in both."""
     fits = record["fits"]
     ref = next((f for f in fits if f["seed"] == line["options"]["seed"]),
                fits[0])
     keys = ("niter", "ndraws", "fill_rounds")
-    ratios = {k: line[k] / ref[k] for k in keys}
     jax_rows = {r["chunk"]: r for r in ref.get("per_chunk", [])}
+    mine, theirs = line, ref
+    cap = line["options"].get("cap", record["cap"])
+    if cap != record["cap"]:
+        mine = next(r for r in line["per_chunk"] if r["niter"] == cap)
+        theirs = jax_rows[mine["chunk"]]
+        assert theirs["niter"] == mine["niter"], (theirs, mine)
+    ratios = {k: mine[k] / theirs[k] for k in keys}
     per_chunk = [dict(chunk=r["chunk"], **{
         k: r[k] / jax_rows[r["chunk"]][k] for k in keys
         if jax_rows[r["chunk"]][k]}) for r in line["per_chunk"]
         if r["chunk"] in jax_rows]
     lo, hi = RATIO_BAR
-    return dict(jax_seed=ref["seed"], jax={k: ref[k] for k in keys},
-                ratios=ratios, per_chunk=per_chunk,
+    return dict(jax_seed=ref["seed"], at_niter=mine["niter"],
+                jax={k: theirs[k] for k in keys},
+                port={k: mine[k] for k in keys}, ratios=ratios,
+                per_chunk=per_chunk,
                 held={k: lo <= v <= hi for k, v in ratios.items()})
+
+
+def claim_checkpoint_dir(ck, opts, sha):
+    """Write the run's options and cube SHA-256 into ``ck`` on its first
+    leg; on a later leg, refuse (``SystemExit``) a directory whose run had
+    other options or another cube, or that this tool did not start."""
+    path = os.path.join(ck, RUN)
+    mine = dict(options=opts, cube_sha256=sha)
+    if not os.path.exists(path):
+        from massivedatans_tpu_torch.io import checkpoint as ckpt
+
+        if ckpt.has_checkpoint(ck):
+            raise SystemExit(f"{ck} holds a checkpoint of another run "
+                             f"(no {RUN}): give a fresh --checkpoint-dir")
+        os.makedirs(ck, exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(mine, fh, indent=1)
+        return
+    with open(path) as fh:
+        theirs = json.load(fh)
+    if theirs != mine:
+        raise SystemExit(f"{ck} holds a run with other options or another "
+                         f"cube ({RUN}: {theirs}): give a fresh "
+                         "--checkpoint-dir")
 
 
 def eager_check(cube, tpl, cfg, device, chunks, tmp):
@@ -240,7 +288,7 @@ def run(args, device, card=None):
 
     from massivedatans_tpu_torch.config import RunConfig
     from massivedatans_tpu_torch.io import checkpoint as ckpt
-    from massivedatans_tpu_torch.muse.pipeline import fit_muse, load_muse_cube
+    from massivedatans_tpu_torch.muse.pipeline import fit_muse
     from massivedatans_tpu_torch.ops import neighbors
     from tools.torch_muse_validate import chunk_records
 
@@ -257,12 +305,11 @@ def run(args, device, card=None):
             run_opts.update(max_chunks=done + args.max_chunks)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        cube_path, region_path, tpl = build_bench_cube(
-            tmp, args.n_spaxels, args.nspec)
-        cube = load_muse_cube(cube_path, region_path, maxdata=args.n_spaxels,
-                              bad_windows=None)
+        cube, tpl = load_bench_cube(tmp, args.n_spaxels, args.nspec)
         cube_s = time.perf_counter() - t0
-        assert cube.y.shape[1] == args.n_spaxels, cube.y.shape
+        sha = cube_sha256(cube)
+        if ck is not None:
+            claim_checkpoint_dir(ck, opts, sha)
         eager = None
         if args.eager_chunks and not done:
             eager = eager_check(cube, tpl, cfg, device, args.eager_chunks,
@@ -279,7 +326,6 @@ def run(args, device, card=None):
                                        device=device, progress=args.progress,
                                        **run_opts)
         wall = time.perf_counter() - t0
-        sha = cube_sha256(cube)
     st = result.stats
     leg = dict(chunks=[done, st["chunks"]], wall_s=wall,
                niter=result.niterations, ndraws=result.ndraws,
