@@ -220,8 +220,17 @@ Phases, each of which raises on failure:
    check the shapes and finite logZ, hold its iterations, evaluations and
    fill rounds within [0.5, 2] x the record's at that iteration, and its
    first ``BENCH_EAGER_CHUNKS`` chunks bit for bit against their eager run
-   as in 4;
-14. print one JSON line of kernel records, then the card's line, then the
+   as in 4; the count is also timed at ndim 3, the horns model's, at the
+   same N and M;
+14. the setting of both packages' seed spread where the fill budget binds
+   (``muse_seeds_phase``, ``SEEDS_RECORD``): the same cube at 100
+   spaxels, a fill budget of 1,024, the wall-clock budget off, capped past
+   the onset of budget-bound chunks; reset the counters, fit seed 1 on the
+   captured path, read the counters (as in 4); hold its evaluations,
+   advances and evaluations per advance within the JAX package's seeds'
+   range widened 1.5 x each way, and its first ``SEEDS_EAGER_CHUNKS``
+   chunks bit for bit against their eager run as in 4;
+15. print one JSON line of kernel records, then the card's line, then the
    ``{"ok": true, ...}`` line last.
 
 Exits non-zero without a result line when there is no CUDA card or the
@@ -381,6 +390,18 @@ LATE_HELD = ("valid_share", "accepted_share", "radius")
 BENCH_RECORD = "muse_bench_4223_jax.json"
 BENCH_CAP = 2800
 BENCH_EAGER_CHUNKS = 1
+# phase 14: the setting of both packages' seed spread where the fill budget
+# binds (tools/muse_seed_spread.py): tools/muse_bench.py's cube at 100
+# spaxels and its options, a fill budget of 1,024 rounds, the wall-clock
+# budget off, capped past the onset; seed 1's evaluations E, advances A
+# and E/A are held within the JAX package's seeds' range, widened by
+# SEEDS_WIDEN each way, and its first SEEDS_EAGER_CHUNKS chunks bitwise
+# their eager run
+SEEDS_RECORD = "muse_seeds_100_budget1024.json"
+SEEDS_SEED = 1
+SEEDS_WIDEN = 1.5
+SEEDS_HELD = ("ndraws", "advances", "evals_per_advance")
+SEEDS_EAGER_CHUNKS = 2
 
 
 def _time_ms(fn, n=TIMING_LAUNCHES):
@@ -1038,12 +1059,17 @@ def main(argv=None):
     # --- phase 13: tools/muse_bench.py's cube ---
     phase("phase 13: MUSE bench cube")
     reset_counts()
-    bench_launches, bench_count = muse_bench_phase(read_counts, neighbors,
-                                                   region, gen)
-    timed["count_within"].append(bench_count)
+    bench_launches, bench_counts = muse_bench_phase(read_counts, neighbors,
+                                                    region, gen)
+    timed["count_within"].extend(bench_counts)
 
-    # --- phase 14: records ---
-    phase("phase 14: records")
+    # --- phase 14: the MUSE seed spread's setting ---
+    phase("phase 14: MUSE seed setting")
+    reset_counts()
+    seeds_launches = muse_seeds_phase(read_counts, neighbors)
+
+    # --- phase 15: records ---
+    phase("phase 15: records")
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":
@@ -1063,6 +1089,7 @@ def main(argv=None):
             launches_muse_escalated=escalated_launches[name],
             launches_muse_late_state=late_launches[name],
             launches_muse_bench=bench_launches[name],
+            launches_muse_seeds=seeds_launches[name],
             # per rank, for each sharded fit
             launches_sharded={f"{r['backend']} world {r['world']}":
                               [c[name] for c in r["launches"]]
@@ -1470,7 +1497,8 @@ def muse_bench_phase(read_counts, neighbors, region, gen):
     seed 1) capped at ``BENCH_CAP``, without the record's checkpoints.
     First each kernel is held bit for bit against its plain version at
     this fit's shapes: the count at the proposal pool (N = 8,192, M =
-    1,664, ndim 5, timed) and the radius at M = 1,664, ndim 5. The launch
+    1,664, ndim 5, timed; and timed at ndim 3, the horns model's) and the
+    radius at M = 1,664, ndim 5. The launch
     counters must be 0 when it is called. Checks the shapes, finite logZ,
     iterations, evaluations and fill rounds within the tool's
     ``RATIO_BAR`` x the record's at the chunk that ends at the cap
@@ -1486,8 +1514,9 @@ def muse_bench_phase(read_counts, neighbors, region, gen):
     with open(os.path.join(ROOT, BENCH_RECORD)) as fh:
         ref = json.load(fh)
     opts = dict(ref["options"], cap=BENCH_CAP)
-    count_rec = check_count_within(neighbors, gen, opts["proposal_batch"],
-                                   MAIN_M, 5, timed=True)
+    count_recs = [check_count_within(neighbors, gen, opts["proposal_batch"],
+                                     MAIN_M, ndim, timed=True)
+                  for ndim in (5, 3)]
     check_radius(neighbors, region, gen, MAIN_M, 5, NBOOT)
     neighbors.count_within.launches = 0
     neighbors.bootstrapped_sq_radius.launches = 0
@@ -1539,7 +1568,73 @@ def muse_bench_phase(read_counts, neighbors, region, gen):
             lambda eager: fit(eager, checkpoint_dir=os.path.join(
                 tmp, "eager" if eager else "graph"),
                 max_chunks=BENCH_EAGER_CHUNKS), neighbors)
-    return launches, count_rec
+    return launches, count_recs
+
+
+def muse_seeds_phase(read_counts, neighbors):
+    """Phase 14: the setting of ``SEEDS_RECORD`` (both packages' seeds of
+    ``tools/muse_bench.py``'s cube at 100 spaxels where the fill budget
+    binds), seed ``SEEDS_SEED``, on the captured path through
+    ``tools/torch_muse_bench.py``'s cube and options; the launch counters
+    must be 0 when it is called. Checks the cube's SHA-256, finite logZ,
+    the stop at the cap, and the fit's evaluations, advances and
+    evaluations per advance within the range of the record's JAX seeds
+    widened by ``SEEDS_WIDEN`` each way (``advance_summary`` of its
+    per-chunk records), and its first ``SEEDS_EAGER_CHUNKS`` chunks bit
+    for bit against their eager run (``compare_paths``). Prints the fit's
+    record beside the JAX seeds' range; returns its launches."""
+    from massivedatans_tpu_torch.config import RunConfig
+    from massivedatans_tpu_torch.muse.pipeline import fit_muse
+    from tools import torch_muse_bench as bench
+    from tools.torch_muse_validate import chunk_records
+
+    with open(os.path.join(ROOT, SEEDS_RECORD)) as fh:
+        ref = json.load(fh)
+    opts = dict(bench.defaults(), **ref["setting"], seed=SEEDS_SEED)
+    jax = [f for f in ref["fits"] if f["package"] == "jax"]
+    ranges = {k: (min(f[k] for f in jax) / SEEDS_WIDEN,
+                  max(f[k] for f in jax) * SEEDS_WIDEN) for k in SEEDS_HELD}
+    cfg = RunConfig(**bench.config_fields(opts))
+    with tempfile.TemporaryDirectory() as tmp:
+        cube, tpl = bench.load_bench_cube(tmp, opts["n_spaxels"],
+                                          opts["nspec"])
+        assert bench.cube_sha256(cube) == ref["cube_sha256"]
+
+        def fit(eager=False, **run_opts):
+            return fit_muse(cube, tpl, bench.ZLO, bench.ZHI, "FULL", cfg,
+                            device=DEVICE, eager=eager, **run_opts)[0]
+
+        _sync()
+        t0 = time.perf_counter()
+        with chunk_records(group_every=bench.group_every(
+                opts["nlive"], opts["n_spaxels"])) as per_chunk:
+            result = fit()
+        _sync()
+        wall = time.perf_counter() - t0
+        launches = read_counts(result)
+        st = result.stats
+        got = dict(ndraws=result.ndraws, **bench.advance_summary(
+            per_chunk, per_chunk.per_spaxel, result.ndraws))
+        held = {k: ranges[k][0] <= got[k] <= ranges[k][1]
+                for k in SEEDS_HELD}
+        print(json.dumps(dict(
+            fit=f"tools/muse_bench.py's cube, {opts['n_spaxels']} spaxels, "
+                f"fill budget {opts['fill_budget']}, cap {opts['cap']}, "
+                f"seed {SEEDS_SEED}", wall_s=wall, niter=result.niterations,
+            fill_rounds=st["fill_rounds"],
+            member_overflow=st["member_overflow"], launches=launches,
+            **path_stats(result), **got, jax_seeds=ref["seeds"]["jax"],
+            jax_range_widened=ranges, held=held)))
+        assert st["chunk_path"] == "graph", st["chunk_path"]
+        assert np.isfinite(result.logZ).all()
+        assert result.niterations == opts["cap"] + 1, result.niterations
+        assert all(held.values()), (got, ranges)
+        compare_paths(
+            f"MUSE seed setting, first {SEEDS_EAGER_CHUNKS} chunks",
+            lambda eager: fit(eager, checkpoint_dir=os.path.join(
+                tmp, "eager" if eager else "graph"),
+                max_chunks=SEEDS_EAGER_CHUNKS), neighbors)
+    return launches
 
 
 def validation_phase(read_counts, neighbors, muse_result, truths, muse_cap):

@@ -37,6 +37,8 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import sys
 import time
 from collections import deque
 from typing import Optional
@@ -354,6 +356,8 @@ def multi_nested_integrator(
     running = running_all[block]
     saved_chunks = chunk_index
     timing["init_s"] = time.time() - t0
+    debug_timing = bool(int(os.environ.get("MDT_DEBUG_TIMING", "0")))
+    debug_prev_rounds = 0
 
     reporter = ProgressReporter(enabled=progress and writer, ndata=D)
     # the [K, D] live_idx feeds the advisory group labels; at large K*D it
@@ -378,7 +382,9 @@ def multi_nested_integrator(
         """Complete the chunk's blocks and start its report's copy."""
         if "report" in chunk:
             return
+        t_w0 = time.time()
         st, dead, rows = runner.finish()
+        chunk["t_wait"] = time.time() - t_w0
         chunk["rows"] = rows
         chunk["report"] = PendingFetch([
             dead.idx[:rows], dead.L[:rows], dead.logwidth[:rows],
@@ -478,6 +484,7 @@ def multi_nested_integrator(
             state = compact_pile(state, group)
             prev_pile_size = ps = int(state.pile_size)
             compact_due = False
+        t_g0 = time.time()
         if running_all.any() and "live_idx" in rep:
             # labels steer the next chunk dispatched (under lookahead, a later
             # one than the next in the pipeline)
@@ -527,6 +534,21 @@ def multi_nested_integrator(
         timing["fetch_s"] += t_c2 - t_c1
         timing["groups_s"] += t_c3 - t_c2
         timing["checkpoint_s"] += time.time() - t_c3
+        if debug_timing:
+            # `wait`: blocked on the chunk's blocks and its report; `host`:
+            # the stream, compaction and checkpoint; `groups`: the labels;
+            # `adv`: the chunk's dataset advances (dead rows with idx >= 0,
+            # from the report the host holds) of the ideal rows x running,
+            # the gap being iterations whose fill the round budget cut short
+            n_adv = int((rep["idx"] >= 0).sum())
+            print("chunk %d: wait=%.0fms host=%.0fms groups=%.0fms rounds=%d"
+                  " adv=%d/%d"
+                  % (chunk_index, 1e3 * (chunk["t_wait"] + t_c2 - t_c1),
+                     1e3 * (time.time() - t_c2 - (t_c3 - t_g0)),
+                     1e3 * (t_c3 - t_g0), rounds - debug_prev_rounds,
+                     n_adv, rows * max(int(running.sum()), 1)),
+                  file=sys.stderr, flush=True)
+            debug_prev_rounds = rounds
         if hit_max_chunks:
             log.info("max_chunks=%d reached: checkpointed and stopping",
                      max_chunks)

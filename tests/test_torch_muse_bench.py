@@ -5,7 +5,9 @@ on a small cube (``tools/jax_muse_rounds.py --cube bench``).
 """
 
 import json
+import math
 import os
+import re
 import sys
 
 import numpy as np
@@ -32,12 +34,16 @@ FIELDS = ("metric", "ndraws", "niter", "stalled", "member_overflow",
           "pile_peak", "wall_s", "evals_per_s", "fill_rounds",
           "group_refreshes", "n_groups_max", "labels_s", "tail_s",
           "peak_mem_GB", "launches", "options", "cube_sha256", "per_chunk",
-          "legs", "jax_run", "paper", "bars")
+          "legs", "jax_run", "paper", "bars", "advances",
+          "evals_per_advance", "budget_bound_chunks",
+          "first_budget_bound_chunk", "mean_budget", "advance_quantiles")
 OPTIONS = ("n_spaxels", "nspec", "nlive", "cap", "eval_batch",
            "proposal_batch", "fill_budget", "chunk_iters", "lookahead",
            "fallback_rounds", "dispatch_target", "checkpoint_every", "seed")
 CHUNK_FIELDS = ("chunk", "niter", "ndraws", "fill_rounds", "running",
-                "member_overflow", "wall_s", "n_groups")
+                "member_overflow", "wall_s", "n_groups", "advances",
+                "advances_total", "rounds", "budget", "budget_bound",
+                "round_steps")
 TINY = ["--device", "cpu", "--n-spaxels", "20", "--nspec", "64", "--nlive",
         "50", "--cap", "100"]
 
@@ -107,6 +113,14 @@ def test_tool_prints_every_field_and_option(capsys):
     assert line["per_chunk"] and all(
         sorted(r) == sorted(CHUNK_FIELDS) for r in line["per_chunk"])
     assert line["jax_run"] is None and line["paper"] is None
+    # 20 spaxels advance once an iteration until the cap's iteration
+    assert line["advances"] == sum(r["advances"] for r in line["per_chunk"])
+    assert line["evals_per_advance"] == line["ndraws"] / line["advances"]
+    assert sorted(line["advance_quantiles"]) == sorted(bench.QUANTILES)
+    assert line["advance_quantiles"]["max"] <= line["niter"]
+    # the wall-clock budget is on (it starts at 512 rounds) and never binds
+    assert line["mean_budget"] >= 1 and line["budget_bound_chunks"] == 0
+    assert line["first_budget_bound_chunk"] is None
     # the eager check ran its chunk twice (both eager here) and held
     check = line["eager_check"]
     assert check["chunks"] == 1 and check["held"], check
@@ -261,3 +275,228 @@ def test_a_shorter_fit_is_held_at_its_cap_chunk():
     held = bench.held_to_record(full, record)
     assert held["ratios"]["ndraws"] == 200000 / 90000
     assert not held["held"]["ndraws"] and held["held"]["fill_rounds"]
+
+
+BUDGET_CUBE = dict(n_spaxels=16, nspec=600, nlive=50, cap=400,
+                   fill_budget=20, dispatch_target=0.0)
+
+
+@pytest.fixture(scope="module")
+def budget_cube(tmp_path_factory):
+    """A tiny bench cube (16 spaxels, nspec 600) at nlive 50 with a fill
+    budget of 20 rounds a chunk, which binds: ``(cube, tpl, fields)``,
+    ``fields`` both packages' ``RunConfig`` fields."""
+    tmp = str(tmp_path_factory.mktemp("budget"))
+    cube, tpl = bench.load_bench_cube(tmp, BUDGET_CUBE["n_spaxels"],
+                                      BUDGET_CUBE["nspec"])
+    opts = dict(bench.defaults(), **BUDGET_CUBE)
+    return cube, tpl, bench.config_fields(opts)
+
+
+def _fit_recorded(package, cube, tpl, fields):
+    """One fit of ``package`` with its per-chunk records: ``(result,
+    rows)``."""
+    if package == "jax":
+        from massivedatans_tpu.config import RunConfig as JaxRunConfig
+        from massivedatans_tpu.muse.model import load_template_grid
+        from massivedatans_tpu.ns.integrator import multi_nested_integrator
+
+        md = load_template_grid(tpl, data_wl_nm=cube.wavelength_nm,
+                                zlo=bench.ZLO, zhi=bench.ZHI)
+        problem = jax_lik.make_muse_problem(md, cube.y, cube.var)
+        with jax_muse_rounds.jax_chunk_records(
+                fill_budget=fields["chunk_fill_budget"]) as rows:
+            res = multi_nested_integrator(problem, JaxRunConfig(**fields),
+                                          progress=False)
+        return res, rows
+    from massivedatans_tpu_torch.config import RunConfig
+    from tools.torch_muse_validate import chunk_records
+
+    with chunk_records() as rows:
+        res, _ = pipeline.fit_muse(cube, tpl, bench.ZLO, bench.ZHI, "FULL",
+                                   RunConfig(**fields), device="cpu")
+    return res, rows
+
+
+@pytest.mark.parametrize("package", ["jax", "torch"])
+def test_hooks_count_advances_where_the_budget_binds(
+        budget_cube, package, capsys, monkeypatch):
+    """Each package's per-chunk hook counts a chunk's advances as its dead
+    rows with ``idx >= 0``: in total and per spaxel they are the
+    ``NSResult``'s dead rows of finite L (a row that did not advance holds
+    L = -inf), the integrator's own ``MDT_DEBUG_TIMING`` line prints the
+    same count for each chunk, and a chunk that used its whole budget of
+    20 rounds advanced fewer spaxels than its iterations x running."""
+    cube, tpl, fields = budget_cube
+    monkeypatch.setenv("MDT_DEBUG_TIMING", "1")
+    res, rows = _fit_recorded(package, cube, tpl, fields)
+    err = capsys.readouterr().err
+    dead = np.asarray(res.L)[:res.niterations] > -np.inf
+    assert sum(r["advances"] for r in rows) == int(dead.sum())
+    np.testing.assert_array_equal(rows.per_spaxel, dead.sum(axis=0))
+    printed = {int(c): int(a) for c, a in re.findall(
+        r"^chunk (\d+): .* adv=(\d+)/\d+$", err, re.M)}
+    assert printed and all(rows[c - 1]["advances"] == a
+                           for c, a in printed.items()), (printed, rows)
+    bound = [r for r in rows if r["budget_bound"]]
+    assert bound and all(r["rounds"] >= 20 and r["budget"] == 20
+                         for r in bound)
+    prev = {r["chunk"]: r for r in rows}
+    assert any(r["advances"] < (r["niter"] - prev.get(
+        r["chunk"] - 1, dict(niter=0))["niter"]) * BUDGET_CUBE["n_spaxels"]
+        for r in bound)
+    summary = bench.advance_summary(rows, rows.per_spaxel, res.ndraws)
+    assert summary["advances"] == int(dead.sum())
+    assert summary["first_budget_bound_chunk"] == bound[0]["chunk"]
+    assert summary["budget_bound_chunks"] == len(bound)
+    assert summary["advance_quantiles"]["min"] == dead.sum(axis=0).min()
+    assert summary["advance_quantiles"]["max"] == dead.sum(axis=0).max()
+    if package == "torch":
+        kinds = [r["round_steps"] for r in rows]
+        assert sum(k["region"] for k in kinds) > 0
+        assert all(set(k) == {"region", "focus", "column"} for k in kinds)
+
+
+def test_port_debug_line_is_off_by_default(budget_cube, capsys,
+                                           monkeypatch):
+    """Without ``MDT_DEBUG_TIMING`` the port's integrator prints no chunk
+    line; with it, one per chunk, numbered in order."""
+    from massivedatans_tpu_torch.config import RunConfig
+
+    cube, tpl, fields = budget_cube
+    fields = dict(fields, max_samples=120, chunk_iters=40)
+    monkeypatch.delenv("MDT_DEBUG_TIMING", raising=False)
+    res, _ = pipeline.fit_muse(cube, tpl, bench.ZLO, bench.ZHI, "FULL",
+                               RunConfig(**fields), device="cpu")
+    assert "adv=" not in capsys.readouterr().err
+    monkeypatch.setenv("MDT_DEBUG_TIMING", "1")
+    again, _ = pipeline.fit_muse(cube, tpl, bench.ZLO, bench.ZHI, "FULL",
+                                 RunConfig(**fields), device="cpu")
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if ln.startswith("chunk ")]
+    assert [int(ln.split()[1][:-1]) for ln in lines] == list(
+        range(1, res.stats["chunks"] + 1))
+    np.testing.assert_array_equal(again.logZ, res.logZ)
+
+
+def test_held_to_seeds_known_answers():
+    """``held_to_seeds`` on hand-made samples: equal samples hold (ratio 1,
+    p 1); a sample shifted 3 x fails on both bars (exact p = 2 / C(10,
+    5)); one whose median lies
+    within [0.5, 2] x but whose seeds all lie above the other's fails on
+    the U test; a fit with no budget-bound chunk
+    counts its onset as the chunk after its last."""
+    def fits(values, **kw):
+        return [dict(ndraws=v, advances=10 * v, evals_per_advance=0.1,
+                     budget_bound_chunks=1, first_budget_bound_chunk=3,
+                     **kw) for v in values]
+
+    same = bench.held_to_seeds(fits([1, 2, 3, 4, 5]), fits([1, 2, 3, 4, 5]))
+    assert same["ndraws"]["ratio"] == 1.0 and same["ndraws"]["p"] == 1.0
+    assert all(v["held"] for v in same.values())
+    shifted = bench.held_to_seeds(fits([7, 8, 9, 10, 11]),
+                                  fits([1, 2, 3, 4, 5]), keys=("ndraws",))
+    assert shifted["ndraws"]["ratio"] == 3.0
+    assert shifted["ndraws"]["p"] == pytest.approx(2 / 252)  # exact
+    assert not shifted["ndraws"]["held"]
+    above = bench.held_to_seeds(fits(range(20, 30)), fits(range(10, 20)),
+                                keys=("ndraws",))["ndraws"]
+    assert above["ratio"] == pytest.approx(24.5 / 14.5)
+    # ten seeds a side: the normal approximation with continuity
+    # correction, z = (100 - 50 - 0.5) / sqrt(10 * 10 * 21 / 12)
+    z = 49.5 / math.sqrt(10 * 10 * 21 / 12)
+    assert above["p"] == pytest.approx(math.erfc(z / math.sqrt(2)))
+    assert not above["held"]
+    late = [dict(f, first_budget_bound_chunk=None, budget_bound_chunks=0,
+                 per_chunk=[dict(chunk=11)]) for f in fits([1])]
+    onset = bench.held_to_seeds(late, fits([1]),
+                                keys=("first_budget_bound_chunk",))
+    assert onset["first_budget_bound_chunk"]["port_median"] == 12.0
+    # records without advances: the statistic is absent, not held
+    old = [dict(ndraws=v) for v in (1, 2)]
+    assert bench.held_to_seeds(old, old)["advances"] is None
+
+
+def test_an_old_record_loads_without_the_progress_fields():
+    """A record written before the advances were counted
+    (``muse_bench_4223_jax.json``) still holds a line in
+    ``held_to_record``: its progress reads as absent (None) and the bars
+    are those of the counts alone; ``advance_summary`` of its rows is
+    None throughout."""
+    with open(os.path.join(ROOT, "muse_bench_4223_jax.json")) as fh:
+        record = json.load(fh)
+    ref = record["fits"][0]
+    rows = [dict(r, advances=400 * 4223, advances_total=400 * 4223 * i,
+                 rounds=1, budget=8192, budget_bound=False)
+            for i, r in enumerate(ref["per_chunk"][:7], 1)]
+    line = dict(options=dict(seed=1, cap=2800), per_chunk=rows,
+                niter=2801, ndraws=rows[-1]["ndraws"],
+                fill_rounds=rows[-1]["fill_rounds"])
+    held = bench.held_to_record(line, record)
+    assert held["at_niter"] == 2800 and all(held["held"].values())
+    progress = held["progress"]
+    assert progress["jax"] == dict(advances=None, evals_per_advance=None)
+    assert progress["port"]["advances"] == 400 * 4223 * 7
+    assert progress["ratios"] == dict(advances=None, evals_per_advance=None)
+    assert set(held["held"]) == {"niter", "ndraws", "fill_rounds"}
+    assert all(v is None for v in bench.advance_summary(
+        ref["per_chunk"], None, ref["ndraws"]).values())
+
+
+def test_seed_spread_gathers_holds_and_repeats(tmp_path, capsys):
+    """``tools/muse_seed_spread.py`` gathers both tools' records of one
+    setting, holds the port's seeds against the JAX package's with
+    ``held_to_seeds``, prints a table per package, compares each fit with
+    an earlier record of its package and seed (an older JAX record's
+    overflows read from its last chunk), and refuses a fit of another
+    setting or cube."""
+    from tools import muse_seed_spread as spread
+
+    opts = dict(bench.defaults(), n_spaxels=16, cap=800, fill_budget=20,
+                dispatch_target=0.0)
+    rows = [dict(chunk=1, niter=400, ndraws=100, fill_rounds=20,
+                 member_overflow=1, advances=6000, budget_bound=True)]
+
+    def fit(seed, ndraws, **kw):
+        return dict(seed=seed, niter=801, ndraws=ndraws, advances=12000,
+                    evals_per_advance=ndraws / 12000, fill_rounds=40,
+                    member_overflow=seed, budget_bound_chunks=1,
+                    first_budget_bound_chunk=1, mean_budget=20,
+                    advance_quantiles=dict.fromkeys(bench.QUANTILES, 750.0),
+                    running_at_cap=16, wall_s=1.0, per_chunk=rows, **kw)
+
+    def write(name, obj):
+        path = tmp_path / name
+        path.write_text(json.dumps(obj))
+        return str(path)
+
+    jax = write("j.json", dict(cube="bench", options=opts, cube_sha256="a",
+                               fits=[dict(fit(s, 1000 * s), package="jax")
+                                     for s in (1, 2, 3)]))
+    port = [write(f"p{s}.json", dict(fit(s, 1100 * s), options=dict(
+        opts, seed=s), cube_sha256="a", card="card")) for s in (1, 2, 3)]
+    old = write("old.json", dict(cube="bench", options=opts, cube_sha256="a",
+                                 fits=[dict(fit(1, 1000), package="jax",
+                                            member_overflow=None)]))
+    out = str(tmp_path / "s.json")
+    assert spread.main(["--jax", jax, "--port", *port, "--previous", old,
+                        "--out", out]) == 0
+    printed = capsys.readouterr().out
+    assert printed.count("| seed | E | A | E/A |") == 2
+    with open(out) as fh:
+        rec = json.load(fh)
+    assert rec["seeds"] == dict(jax=[1, 2, 3], torch=[1, 2, 3])
+    assert rec["held_to_seeds"]["ndraws"]["ratio"] == pytest.approx(1.1)
+    assert all(v["held"] for v in rec["held_to_seeds"].values())
+    (rep,) = rec["repeats"]
+    assert rep["package"] == "jax" and rep["equal"]
+    assert rec["card"] == ["card"] and len(rec["fits"]) == 6
+    other = write("p9.json", dict(fit(9, 9), options=dict(opts, seed=9,
+                                                          cap=1200),
+                                  cube_sha256="a"))
+    with pytest.raises(SystemExit, match="other options"):
+        spread.main(["--jax", jax, "--port", other, "--out", out])
+    cube = write("p8.json", dict(fit(8, 9), options=dict(opts, seed=8),
+                                 cube_sha256="b"))
+    with pytest.raises(SystemExit, match="another cube"):
+        spread.main(["--jax", jax, "--port", cube, "--out", out])

@@ -311,6 +311,37 @@ def test_state_tool_runs_each_package_alone_and_combines(tmp_path):
         assert comb["C"]["runs"][p] == recs[p]["C"]["runs"][p]
     assert set(comb["C"]["totals"]) == set(mrs.TOTALS)
     assert comb["state_sha256"] == recs["jax"]["state_sha256"]
+    # each package's chunk advanced some of the 12 spaxels, at most one
+    # per iteration each, and the seeds are held to each other
+    for p in outs:
+        last = comb["C"]["runs"][p][0][-1]
+        added = last["niter"] - comb["C"]["start"]["niter"]
+        assert 0 < last["advances"] <= added * 12
+    assert set(comb["C"]["held_to_seeds"]) == {
+        "ndraws", "advances", "evals_per_advance"}
+    assert comb["C"]["held_to_seeds"]["advances"]["n_port"] == 1
     other = record("other.json", dict(recs["torch"], state_sha256="0" * 64))
     with pytest.raises(SystemExit, match="state_sha256"):
         mrs.combine([outs["jax"], other], str(tmp_path / "x.json"))
+
+
+def test_seed_totals_add_evaluations_per_advance():
+    """``seed_totals``: what each seed's chunks added, one dict per seed,
+    with its evaluations per advance; runs recorded before the advances
+    were counted give the counts alone, and ``combine``'s
+    ``held_to_seeds`` then finds no advances to hold."""
+    from tools.torch_muse_bench import held_to_seeds
+
+    start = dict(niter=5, fill_rounds=90, ndraws=900)
+    runs = [[dict(niter=10, fill_rounds=100, ndraws=1000 + 100 * i,
+                  running=1, advances=50)] for i in range(3)]
+    fits = mrs.seed_totals(runs, start)
+    assert [f["ndraws"] for f in fits] == [100, 200, 300]
+    assert [f["evals_per_advance"] for f in fits] == [2.0, 4.0, 6.0]
+    old = [[{k: v for k, v in r[0].items() if k != "advances"}]
+           for r in runs]
+    assert all("evals_per_advance" not in f
+               for f in mrs.seed_totals(old, start))
+    held = held_to_seeds(mrs.seed_totals(old, start), fits,
+                         keys=("ndraws", "advances", "evals_per_advance"))
+    assert held["advances"] is None and held["ndraws"]["held"]

@@ -20,12 +20,12 @@ options: the CPU comparison behind ROADMAP queue 3's MUSE rounds check.
 ``build_bench_cube``, the port's ``synth``, loaded with the real-MUSE bad
 windows, z in [0, 0.3]) and its options (``bench_options``: those of
 ``tools/muse_bench.py``, checkpoints every 2 chunks included, with
-``--nlive`` and ``--cap``, and no wall-clock budget); ``--options`` and
-``--budget`` do not apply, and the port's fits run it on the CPU at the
-same options. Otherwise the tool builds ``tools/torch_muse_validate.py``'s
-fixture (``build_fixture``: 400 template wavelengths, seed 11, flux
-0.1-1.0, no bad-window inflation) once
-with the port's ``synth``, at ``--side`` x ``--side`` spaxels and
+``--nlive``, ``--cap`` and ``--fill-budget``, and no wall-clock budget);
+``--options`` and ``--budget`` do not apply, and the port's fits run it
+on the CPU at the same options. Otherwise the tool builds
+``tools/torch_muse_validate.py``'s fixture (``build_fixture``: 400
+template wavelengths, seed 11, flux 0.1-1.0, no bad-window inflation)
+once with the port's ``synth``, at ``--side`` x ``--side`` spaxels and
 ``--nspec`` channels, and fits that one cube with the JAX package's
 integrator and with the port's ``fit_muse`` on the CPU, at
 ``RunConfig(nlive_points, tolerance=0.5, seed, eval_batch_max,
@@ -43,14 +43,18 @@ packages (the port's CPU fits are about 10 x slower than the JAX
 package's: at full size its counts come from the card,
 ``tools/torch_muse_validate.py``). One JSON line per fit (package, option
 set, seed, iterations, evaluations, fill rounds, evaluations per round,
-the spaxels still running at the cap, the sorted termination iterations,
-the CPU wall) is printed, and one per JAX chunk as it ends; the whole,
-each fit with its record per chunk (iterations, evaluations and fill
-rounds so far, spaxels running, member overflow, the group count of the
-labels made from its report, wall), is written to ``--out`` with the
-cube's SHA-256. ``--checkpoint-dir`` keeps each JAX fit's state at each
-checkpoint, every 10 chunks (every 2 with ``--cube bench``), in
-``DIR/OPTIONS_seedN/chunk_NNNNN``, from which
+member overflows, the progress of ``torch_muse_bench.advance_summary``:
+spaxel advances, evaluations per advance, the chunks that used their
+whole fill budget and the first of them, the mean budget and the
+quantiles of the advances per spaxel; the spaxels still running at the
+cap, the sorted termination iterations, the CPU wall) is printed, and one
+per JAX chunk as it ends; the whole, each fit with its record per chunk
+(iterations, evaluations and fill rounds so far, spaxels running, member
+overflow, the group count of the labels made from its report, wall; the
+chunk's advances, fill rounds, budget and ``budget_bound``), is written
+to ``--out`` with the cube's SHA-256. ``--checkpoint-dir`` keeps each
+JAX fit's state at each checkpoint, every 10 chunks (every 2 with
+``--cube bench``), in ``DIR/OPTIONS_seedN/chunk_NNNNN``, from which
 ``tools/muse_rounds_from_state.py --state`` starts. The walls are CPU
 walls, not times of either package on a device.
 """
@@ -83,7 +87,8 @@ def bench_options(args) -> dict:
 
     opts = bench.defaults()
     opts.update(n_spaxels=args.n_spaxels, nspec=args.nspec,
-                nlive=args.nlive, cap=args.cap, dispatch_target=0.0)
+                nlive=args.nlive, cap=args.cap, fill_budget=args.fill_budget,
+                dispatch_target=0.0)
     return opts
 
 
@@ -104,9 +109,13 @@ def cube_sha256(cube):
     return sha(cube)
 
 
-def summary(package, name, seed, opts, result, wall):
-    """One fit's counts, in the same layout for both packages."""
+def summary(package, name, seed, opts, result, wall, per_chunk):
+    """One fit's counts, in the same layout for both packages, with its
+    progress (``torch_muse_bench.advance_summary``) from its per-chunk
+    records."""
     import numpy as np
+
+    from tools.torch_muse_bench import advance_summary
 
     rounds = int(result.stats["fill_rounds"])
     cap = opts.get("max_samples", 0)
@@ -115,37 +124,56 @@ def summary(package, name, seed, opts, result, wall):
                 niter=int(result.niterations), ndraws=int(result.ndraws),
                 fill_rounds=rounds,
                 evals_per_round=int(result.ndraws) / max(rounds, 1),
+                member_overflow=int(result.stats["member_overflow"]),
+                **advance_summary(per_chunk, per_chunk.per_spaxel,
+                                  int(result.ndraws)),
                 running_at_cap=int((term > cap).sum()) if cap else 0,
                 termination_iters=[int(t) for t in term], wall_s=wall)
 
 
 @contextlib.contextmanager
-def jax_chunk_records(checkpoint_dir=None):
+def jax_chunk_records(checkpoint_dir=None, fill_budget=0):
     """Record each chunk of the JAX package's fits made inside the block,
     in the layout of ``torch_muse_validate.chunk_records`` (the counts of
     its report, the group count of the labels made from it, the host wall
-    since the block began), printing each as a JSON line. With
-    ``checkpoint_dir``, each state the integrator saves there (every 10
-    chunks) is also kept in ``checkpoint_dir/chunk_NNNNN``, loadable by
+    since the block began; its advances, the dead rows with ``idx >= 0``
+    of the report's dead block, where the integrator's
+    ``MDT_DEBUG_TIMING`` line counts them, its fill rounds and whether
+    they reached ``fill_budget``, the fixed budget of every chunk),
+    printing each as a JSON line. With ``checkpoint_dir``, each state the
+    integrator saves there (every 10 chunks) is also kept in
+    ``checkpoint_dir/chunk_NNNNN``, loadable by
     ``io.checkpoint.load_state`` (``tools/muse_rounds_from_state.py
     --state``). Nothing in the fit changes."""
+    import numpy as np
+
     from massivedatans_tpu.io import checkpoint as ckpt
     from massivedatans_tpu.ns import engine, subsets
+    from tools.torch_muse_validate import ChunkRows
 
-    rows, groups, t0 = [], [], time.perf_counter()
-    parse, labels, save = (engine.parse_meta, subsets.component_labels,
-                           ckpt.save_state)
+    rows, groups, t0 = ChunkRows(), [], time.perf_counter()
+    parse, dead_block, labels, save = (
+        engine.parse_meta, engine.parse_dead_block,
+        subsets.component_labels, ckpt.save_state)
 
     def parse_recorded(meta, D, K):
         rep = parse(meta, D, K)
+        if rows:
+            print(json.dumps(dict(package="jax", **rows[-1])), flush=True)
         rows.append(dict(
             chunk=len(rows) + 1, niter=rep["iteration"],
             ndraws=rep["ndraws"], fill_rounds=rep["fill_rounds"],
             running=int(rep["running_final"].sum()),
             member_overflow=rep["member_overflow"],
             wall_s=time.perf_counter() - t0))
-        print(json.dumps(dict(package="jax", **rows[-1])), flush=True)
+        rows.count_advances(rows[-1], np.zeros((0, D), np.int32),
+                            fill_budget)
         return rep
+
+    def dead_block_recorded(block, n):
+        out = dead_block(block, n)
+        rows.count_advances(rows[-1], out["idx"][:n], fill_budget)
+        return out
 
     def labels_recorded(*args, **kw):
         out = labels(*args, **kw)
@@ -159,12 +187,14 @@ def jax_chunk_records(checkpoint_dir=None):
 
     engine.parse_meta, subsets.component_labels = parse_recorded, \
         labels_recorded
-    ckpt.save_state = save_kept
+    engine.parse_dead_block, ckpt.save_state = dead_block_recorded, save_kept
     try:
         yield rows
     finally:
         engine.parse_meta, subsets.component_labels = parse, labels
-        ckpt.save_state = save
+        engine.parse_dead_block, ckpt.save_state = dead_block, save
+        if rows:
+            print(json.dumps(dict(package="jax", **rows[-1])), flush=True)
         found = dict(groups)
         for r in rows:
             r["n_groups"] = found.get(r["chunk"])
@@ -194,6 +224,9 @@ def main(argv=None):
                          "wall-clock budget off (--cap, --seeds, --nlive "
                          "and --nspec still apply)")
     ap.add_argument("--n-spaxels", type=int, default=4223)
+    ap.add_argument("--fill-budget", type=int, default=8192,
+                    help="fill rounds per chunk with --cube bench "
+                         "(tools/muse_bench.py's 8,192)")
     ap.add_argument("--out", default=os.path.join(ROOT,
                                                   "muse_rounds_cpu.json"))
     args = ap.parse_args(argv)
@@ -233,7 +266,9 @@ def main(argv=None):
                     if package == "jax":
                         ck = args.checkpoint_dir and os.path.join(
                             args.checkpoint_dir, f"{name}_seed{seed}")
-                        with jax_chunk_records(ck) as per_chunk:
+                        with jax_chunk_records(
+                                ck, kw.get("chunk_fill_budget", 0)) \
+                                as per_chunk:
                             res = multi_nested_integrator(
                                 problem, JaxRunConfig(**kw), progress=False,
                                 checkpoint_dir=ck, **fit_kw)
@@ -244,7 +279,7 @@ def main(argv=None):
                                               RunConfig(**kw), device="cpu",
                                               **fit_kw)
                     rows.append(summary(package, name, seed, opts, res,
-                                        time.perf_counter() - t0))
+                                        time.perf_counter() - t0, per_chunk))
                     print(json.dumps(rows[-1]), flush=True)
                     rows[-1]["per_chunk"] = per_chunk
     ratios = {}

@@ -66,12 +66,15 @@ Then, in order (each package's own functions on the same state):
    eval batch 128, no escalation, no wall-clock budget; no cap, which the
    state has passed), for each of ``--seeds``, the group labels made from
    each chunk's live points as the integrators make them: iterations, fill
-   rounds, evaluations and running spaxels after each chunk, one process
-   per seed. The totals compared are what the chunks added to the
-   state's counts, and the spaxels still running. ``--packages`` runs
-   one package's chunks alone (the port's on ``--device``), and
-   ``--combine`` compares such records from the same state and cube on
-   the seeds both ran, over the chunks all ran (``combine``).
+   rounds, evaluations, spaxel advances (the dead rows with ``idx >= 0``)
+   and running spaxels after each chunk, one process per seed. The totals
+   compared are what the chunks added to the state's counts, and the
+   spaxels still running. ``--packages`` runs one package's chunks alone
+   (the port's on ``--device``), and ``--combine`` compares such records
+   from the same state and cube on the seeds both ran, over the chunks
+   all ran (``combine``), and holds the seeds' evaluations, advances and
+   evaluations per advance to each other with
+   ``tools/torch_muse_bench.held_to_seeds``.
 
 Means come with standard errors; a kind (or a total) ``differs`` when the
 means part by more than 4 standard errors and by more than 10 % of the
@@ -173,15 +176,18 @@ def compare_kinds(jax_kinds, port_kinds):
             for kind in jax_kinds}
 
 
-TOTALS = ("niter", "fill_rounds", "ndraws", "running")
+TOTALS = ("niter", "fill_rounds", "ndraws", "running", "advances")
 
 
 def chunk_totals(runs, start):
     """Per seed, what its chunks added to the state's ``start`` counts
-    (iterations, fill rounds, evaluations) and the spaxels still running
-    after the last chunk."""
-    return {k: [r[-1][k] - (start[k] if k != "running" else 0)
-                for r in runs] for k in TOTALS}
+    (iterations, fill rounds, evaluations; the advances, counted from 0)
+    and the spaxels still running after the last chunk. A key that the
+    runs lack (advances, in records written before they were counted) is
+    left out."""
+    return {k: [r[-1][k] - start.get(k, 0) if k != "running" else
+                r[-1][k] for r in runs]
+            for k in TOTALS if all(k in r[-1] for r in runs)}
 
 
 def compare_totals(jax_runs, port_runs, start):
@@ -190,9 +196,22 @@ def compare_totals(jax_runs, port_runs, start):
     jt, pt = chunk_totals(jax_runs, start), chunk_totals(port_runs, start)
     out = {}
     for k in TOTALS:
-        j, p = mean_se(jt[k]), mean_se(pt[k])
-        out[k] = dict(jax=j, torch=p, differs=differs(j, p))
+        if k in jt and k in pt:
+            j, p = mean_se(jt[k]), mean_se(pt[k])
+            out[k] = dict(jax=j, torch=p, differs=differs(j, p))
     return out
+
+
+def seed_totals(runs, start):
+    """``chunk_totals`` as one dict per seed, with the evaluations per
+    advance where the advances were counted: the fits that
+    ``torch_muse_bench.held_to_seeds`` compares."""
+    totals = chunk_totals(runs, start)
+    fits = [{k: v[i] for k, v in totals.items()} for i in range(len(runs))]
+    for f in fits:
+        if f.get("advances"):
+            f["evals_per_advance"] = f["ndraws"] / f["advances"]
+    return fits
 
 
 def state_start(arrays):
@@ -392,10 +411,12 @@ def port_chunks(problem, arrays, pile_capacity, cfg, seed, n_chunks,
     runner = engine.ChunkRunner(problem, cfg.resolve_member_capacity(D),
                                 cfg.chunk_iters, gen, eager=eager)
     strategy, rows, t0 = make_strategy(cfg), [], time.perf_counter()
+    advances = 0
     for _ in range(n_chunks):
         runner.start(state, cfg, strategy)
-        state, _, _ = runner.finish()
-        rows.append(dict(niter=int(state.iteration),
+        state, dead, n = runner.finish()
+        advances += int((dead.idx[:n] >= 0).sum())
+        rows.append(dict(niter=int(state.iteration), advances=advances,
                          fill_rounds=int(state.fill_rounds),
                          ndraws=int(state.ndraws),
                          running=int(state.running.sum()),
@@ -535,12 +556,15 @@ def jax_chunks(problem, cfg, state, seed, n_chunks):
     state = jax_labels(state._replace(key=jax.random.key(seed)),
                        cfg.nlive_points)
     D = state.live_L.shape[1]
-    rows, t0 = [], time.perf_counter()
+    rows, t0, advances = [], time.perf_counter(), 0
     for _ in range(n_chunks):
-        state, _ = engine.run_chunk(problem, state, cfg,
-                                    cfg.resolve_member_capacity(D),
-                                    cfg.chunk_iters)
-        rows.append(dict(niter=int(state.iteration),
+        it0 = int(state.iteration)
+        state, dead = engine.run_chunk(problem, state, cfg,
+                                       cfg.resolve_member_capacity(D),
+                                       cfg.chunk_iters)
+        n = int(state.iteration) - it0
+        advances += int((np.asarray(dead.idx)[:n] >= 0).sum())
+        rows.append(dict(niter=int(state.iteration), advances=advances,
                          fill_rounds=int(state.fill_rounds),
                          ndraws=int(state.ndraws),
                          running=int(np.asarray(state.running).sum()),
@@ -755,6 +779,8 @@ def combine(paths, out):
     seeds of its own: the seeds that both packages ran, their first
     chunks (as many as every record ran), and the totals compared.
     Returns the record."""
+    from tools.torch_muse_bench import held_to_seeds
+
     recs = []
     for path in paths:
         with open(path) as fh:
@@ -783,11 +809,16 @@ def combine(paths, out):
                                   run=r["run"], seeds=r["C"]["seeds"],
                                   chunks=r["C"]["chunks"])
                              for p, r in zip(paths, recs)])
+    rec["C"]["held_to_seeds"] = held_to_seeds(
+        seed_totals(runs["torch"], first["C"]["start"]),
+        seed_totals(runs["jax"], first["C"]["start"]),
+        keys=("ndraws", "advances", "evals_per_advance"))
     rec["differences"] = dict(C=sorted(
         k for k, v in rec["C"]["totals"].items() if v["differs"]))
     with open(out, "w") as fh:
         json.dump(rec, fh, indent=1)
     print(json.dumps(dict(differences=rec["differences"], seeds=seeds,
+                          held_to_seeds=rec["C"]["held_to_seeds"],
                           file=out)), flush=True)
     return rec
 

@@ -33,9 +33,15 @@ It prints one JSON line: the JAX tool's fields and its ``.stats.json``'s
 (evaluations, iterations, stalled, member overflow, pile peak, wall,
 evaluations per second), fill rounds, label refreshes and the largest
 group count, the host seconds of the labels and of the tail, peak device
-memory, both kernels' launches, every option, the cube's SHA-256, and a
-record per chunk (``torch_muse_validate.chunk_records``); ``--out``
-writes it too. The wall is the fits' (the cube's making and the kernels'
+memory, both kernels' launches, every option, the cube's SHA-256, the
+fit's progress (``advance_summary``: spaxel advances, the dead rows with
+``idx >= 0``; evaluations per advance; the chunks that used their whole
+fill budget and the first of them; the mean budget per chunk; the
+quantiles of the advances per spaxel), and a record per chunk
+(``torch_muse_validate.chunk_records``); ``--out`` writes it too.
+``held_to_seeds`` holds one package's seeds against the other's
+(``tools/muse_seed_spread.py``, ``tools/muse_rounds_from_state.py
+--combine``). The wall is the fits' (the cube's making and the kernels'
 build excluded), summed over the legs of a run resumed from
 ``--checkpoint-dir`` (each leg appends to ``legs.jsonl`` there; the
 first writes the options and the cube's SHA-256 to ``bench_run.json``,
@@ -49,7 +55,8 @@ Bars (``bars`` in the line; exit 1 if one fails, 75 if the run was
 interrupted, else 0): no NaN logZ and every spaxel stopped at tolerance
 or at the cap; with ``--jax-record`` (``tools/jax_muse_rounds.py --cube
 bench``'s output at the same options), iterations, evaluations and fill
-rounds within [0.5, 2] x its own (the ratios per chunk printed too); at
+rounds within [0.5, 2] x its own (the ratios per chunk printed too; the
+advances and evaluations per advance beside them, no bar); at
 muse_bench.py's own cap and spaxel count, evaluations within [0.5, 2] x
 the committed JAX run's.
 """
@@ -195,23 +202,112 @@ def jax_counts(n_spaxels: int):
         "ndraws", "niter", "stalled", "member_overflow", "pile_peak")})
 
 
+QUANTILES = dict(min=0.0, q05=0.05, q50=0.5, q95=0.95, max=1.0)
+# the statistics held_to_seeds compares, and its bars: the port's median
+# within SEED_MEDIAN_BAR x the JAX package's, and a two-sided Mann-Whitney
+# U test over the seeds at p >= SEED_P_BAR
+SEED_KEYS = ("ndraws", "advances", "evals_per_advance",
+             "first_budget_bound_chunk")
+SEED_MEDIAN_BAR = (0.5, 2.0)
+SEED_P_BAR = 0.01
+
+
+def advance_summary(per_chunk: list, per_spaxel, ndraws: int) -> dict:
+    """A fit's progress from its per-chunk records (``torch_muse_validate
+    .ChunkRows``; each row gains ``advances_total``, the advances so far)
+    and each spaxel's advances (``per_spaxel``): the advances, the
+    evaluations per advance, the chunks that used their whole fill budget
+    and the first of them (None: none did), the mean budget per chunk, and
+    the quantiles of the advances per spaxel. Records without advances
+    (written before they were counted) give None for each."""
+    import numpy as np
+
+    if not per_chunk or any("advances" not in r for r in per_chunk):
+        return dict(advances=None, evals_per_advance=None,
+                    budget_bound_chunks=None, first_budget_bound_chunk=None,
+                    mean_budget=None, advance_quantiles=None)
+    total = 0
+    for r in per_chunk:
+        total += r["advances"]
+        r["advances_total"] = total
+    bound = [r["chunk"] for r in per_chunk if r["budget_bound"]]
+    budgets = [r["budget"] for r in per_chunk if r["budget"]]
+    return dict(
+        advances=total, evals_per_advance=ndraws / total if total else None,
+        budget_bound_chunks=len(bound),
+        first_budget_bound_chunk=bound[0] if bound else None,
+        mean_budget=sum(budgets) / len(budgets) if budgets else None,
+        advance_quantiles=None if per_spaxel is None else {
+            k: float(np.quantile(per_spaxel, q))
+            for k, q in QUANTILES.items()})
+
+
+def held_to_seeds(port: list, jax: list, keys=SEED_KEYS) -> dict:
+    """The port's fits over the JAX package's, seed against seed spread:
+    for each statistic of ``keys`` (fit summaries' fields), both medians,
+    their ratio, the two-sided Mann-Whitney U test's p over the seeds, and
+    whether the port matches (``held``: ratio within ``SEED_MEDIAN_BAR``
+    and p >= ``SEED_P_BAR``). A fit with no budget-bound chunk counts its
+    onset as the chunk after its last. A statistic that either side has
+    for no fit is None."""
+    import numpy as np
+    from scipy.stats import mannwhitneyu
+
+    def values(fits, key):
+        out = []
+        for f in fits:
+            v = f.get(key)
+            if v is None and key == "first_budget_bound_chunk" \
+                    and f.get("budget_bound_chunks") is not None:
+                v = f["per_chunk"][-1]["chunk"] + 1
+            if v is not None:
+                out.append(float(v))
+        return out
+
+    lo, hi = SEED_MEDIAN_BAR
+    out = {}
+    for key in keys:
+        p_vals, j_vals = values(port, key), values(jax, key)
+        if not p_vals or not j_vals:
+            out[key] = None
+            continue
+        pm, jm = float(np.median(p_vals)), float(np.median(j_vals))
+        ratio = pm / jm
+        p = float(mannwhitneyu(p_vals, j_vals,
+                               alternative="two-sided").pvalue)
+        out[key] = dict(port_median=pm, jax_median=jm, ratio=ratio, p=p,
+                        n_port=len(p_vals), n_jax=len(j_vals),
+                        held=bool(lo <= ratio <= hi and p >= SEED_P_BAR))
+    return out
+
+
 def held_to_record(line: dict, record: dict) -> dict:
     """The fit's counts over the JAX CPU record's (its seed-matched fit,
     else its first), in total and per chunk, and whether each total lies
     within ``RATIO_BAR``. A fit capped below the record's cap is held at
-    the chunk that ends at its cap, in both."""
+    the chunk that ends at its cap, in both. The advances and the
+    evaluations per advance stand beside them (None where a record was
+    written before they were counted) and are no bar."""
     fits = record["fits"]
     ref = next((f for f in fits if f["seed"] == line["options"]["seed"]),
                fits[0])
     keys = ("niter", "ndraws", "fill_rounds")
     jax_rows = {r["chunk"]: r for r in ref.get("per_chunk", [])}
-    mine, theirs = line, ref
+    mine, theirs, total = line, ref, "advances"
     cap = line["options"].get("cap", record["cap"])
     if cap != record["cap"]:
         mine = next(r for r in line["per_chunk"] if r["niter"] == cap)
         theirs = jax_rows[mine["chunk"]]
         assert theirs["niter"] == mine["niter"], (theirs, mine)
+        total = "advances_total"
+
+    def progress(counts):
+        adv = counts.get(total)
+        return dict(advances=adv, evals_per_advance=(
+            counts["ndraws"] / adv if adv else None))
+
     ratios = {k: mine[k] / theirs[k] for k in keys}
+    mp, tp = progress(mine), progress(theirs)
     per_chunk = [dict(chunk=r["chunk"], **{
         k: r[k] / jax_rows[r["chunk"]][k] for k in keys
         if jax_rows[r["chunk"]][k]}) for r in line["per_chunk"]
@@ -220,6 +316,9 @@ def held_to_record(line: dict, record: dict) -> dict:
     return dict(jax_seed=ref["seed"], at_niter=mine["niter"],
                 jax={k: theirs[k] for k in keys},
                 port={k: mine[k] for k in keys}, ratios=ratios,
+                progress=dict(jax=tp, port=mp, ratios={
+                    k: mp[k] / tp[k] if mp[k] and tp[k] else None
+                    for k in mp}),
                 per_chunk=per_chunk,
                 held={k: lo <= v <= hi for k, v in ratios.items()})
 
@@ -338,6 +437,8 @@ def run(args, device, card=None):
                              bootstrapped_sq_radius=neighbors
                              .bootstrapped_sq_radius.launches),
                eager_check=eager)
+    leg["per_spaxel"] = (None if per_chunk.per_spaxel is None
+                         else per_chunk.per_spaxel.tolist())
     legs = [leg]
     if ck is not None:
         with open(os.path.join(ck, LEGS), "a") as fh:
@@ -358,6 +459,11 @@ def run(args, device, card=None):
     capped = int((term > args.cap).sum()) if result.niterations > args.cap \
         else 0
     timing = summed("timing")
+    per_chunk = [r for lg in legs[:-1] for r in lg.get("per_chunk", [])] \
+        + per_chunk
+    spax = [lg.get("per_spaxel") for lg in legs]
+    spax = (None if any(v is None for v in spax)
+            else np.sum([np.asarray(v) for v in spax], axis=0))
     peaks = [lg["peak_mem_GB"] for lg in legs if lg["peak_mem_GB"]]
     line = dict(
         metric=f"MUSE pipeline, {problem.ndata} spaxels, nspec={args.nspec}",
@@ -365,7 +471,8 @@ def run(args, device, card=None):
         stalled=st["stalled"], n_stalled_datasets=int(np.sum(
             st["stalled_mask"])),
         member_overflow=st["member_overflow"], pile_peak=st["pile_peak"],
-        fill_rounds=st["fill_rounds"], wall_s=total,
+        fill_rounds=st["fill_rounds"],
+        **advance_summary(per_chunk, spax, result.ndraws), wall_s=total,
         evals_per_s=result.ndraws / total if total else None,
         interrupted=st["interrupted"], chunks=st["chunks"],
         group_refreshes=sum(lg["group_refreshes"] for lg in legs),
@@ -382,8 +489,7 @@ def run(args, device, card=None):
         card=card, legs=[{k: lg[k] for k in ("chunks", "wall_s", "niter",
                                              "ndraws")} for lg in legs],
         eager_check=legs[0]["eager_check"],
-        per_chunk=[r for lg in legs[:-1] for r in lg.get("per_chunk", [])]
-        + per_chunk,
+        per_chunk=per_chunk,
         jax_run=jax_counts(args.n_spaxels),
         paper=PAPER.get(args.n_spaxels) and dict(
             PAPER[args.n_spaxels],

@@ -302,30 +302,73 @@ def late_run(pieces, eval_batch):
     return rows
 
 
+class ChunkRows(list):
+    """A fit's per-chunk records, oldest first, with each spaxel's
+    advances over the chunks recorded (``per_spaxel``, an int64 array;
+    None before the first chunk)."""
+
+    per_spaxel = None
+
+    def count_advances(self, row, idx, budget):
+        """Add a chunk's progress to ``row``: its advances (the dead rows
+        with ``idx >= 0``, ``idx`` its ``[rows, D]`` host array, added to
+        those already counted), its fill rounds (unless set, from the
+        cumulative count of the row before), its budget and whether it
+        used the whole of it (``budget_bound``)."""
+        import numpy as np
+
+        adv = (np.asarray(idx) >= 0).sum(axis=0, dtype=np.int64)
+        if self.per_spaxel is None:
+            self.per_spaxel = np.zeros(adv.shape, np.int64)
+        self.per_spaxel += adv
+        row["advances"] = row.get("advances", 0) + int(adv.sum())
+        if "rounds" not in row:
+            prev = self[-2]["fill_rounds"] if len(self) > 1 else 0
+            row["rounds"] = row["fill_rounds"] - prev
+        row["budget"] = budget
+        row["budget_bound"] = bool(budget) and row["rounds"] >= budget
+
+
 @contextlib.contextmanager
 def chunk_records(first_chunk=0, group_every=1):
-    """Record each chunk of the port's fits made inside the block: a list
-    of dicts (chunk, iterations, evaluations and fill rounds so far,
-    spaxels running, member overflow, the group count of the labels made
-    from its report, host wall since the block began), in chunk order.
-    It reads each chunk's state when the chunk has finished, which adds a
-    host read and changes nothing in the fit. ``first_chunk``: the chunks
-    a resumed fit starts after; ``group_every``: the integrator's label
-    cadence (labels come from the reports of the chunks dispatched at a
-    multiple of it), by which each group count finds its chunk."""
+    """Record each chunk of the port's fits made inside the block: a
+    ``ChunkRows`` of dicts (chunk, iterations, evaluations and fill rounds
+    so far, spaxels running, member overflow, the group count of the
+    labels made from its report, host wall since the block began; the
+    chunk's advances, fill rounds, budget and ``budget_bound`` as
+    ``ChunkRows.count_advances`` counts them, from its dead rows, and the
+    launches of its round steps by kind, ``round_steps``), in chunk order.
+    It reads each chunk's state and dead rows when the chunk has finished,
+    which adds a host read and changes nothing in the fit.
+    ``first_chunk``: the chunks a resumed fit starts after;
+    ``group_every``: the integrator's label cadence (labels come from the
+    reports of the chunks dispatched at a multiple of it), by which each
+    group count finds its chunk."""
+    import collections
+
     from massivedatans_tpu_torch.ns import engine, subsets
 
-    rows, groups, t0 = [], [], time.perf_counter()
+    rows, groups, t0 = ChunkRows(), [], time.perf_counter()
     finish, labels = engine.ChunkRunner.finish, subsets.component_labels
+    kinds = ("region", "focus", "column")
+    seen = collections.Counter()
 
     def finish_recorded(self):
+        prog = self._active
         st, dead, n = finish(self)
+        steps = sum((p.steps for p in self.programs.values()),
+                    collections.Counter())
         rows.append(dict(
             chunk=len(rows) + 1, niter=int(st.iteration),
             ndraws=int(st.ndraws), fill_rounds=int(st.fill_rounds),
             running=int(st.running.sum()),
             member_overflow=int(st.member_overflow),
-            wall_s=time.perf_counter() - t0))
+            wall_s=time.perf_counter() - t0,
+            rounds=int(prog.carry.chunk_rounds),
+            round_steps={k: steps[k] - seen[k] for k in kinds}))
+        seen.update({k: steps[k] - seen[k] for k in kinds})
+        rows.count_advances(rows[-1], dead.idx[:n].cpu().numpy(),
+                            int(prog.carry.budget_in))
         return st, dead, n
 
     def labels_recorded(*args, **kw):
