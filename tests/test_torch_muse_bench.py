@@ -25,6 +25,7 @@ sys.path.insert(0, ROOT)
 
 from tools import jax_muse_rounds  # noqa: E402
 from tools import torch_muse_bench as bench  # noqa: E402
+from tools.torch_muse_validate import ChunkRows  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -155,6 +156,11 @@ def test_resume_sums_the_legs(tmp_path, capsys):
     # labels on every chunk's report here (K D <= 2^20), each in its row
     assert all(r["n_groups"] is not None for r in line["per_chunk"]
                if r["running"] > 0)
+    # the advances so far run on across the legs
+    totals = np.cumsum([r["advances"] for r in line["per_chunk"]])
+    assert [r["advances_total"] for r in line["per_chunk"]] == \
+        totals.tolist()
+    assert line["advances"] == totals[-1]
 
 
 def test_resume_refuses_another_run(tmp_path, capsys):
@@ -357,6 +363,36 @@ def test_hooks_count_advances_where_the_budget_binds(
         assert all(set(k) == {"region", "focus", "column"} for k in kinds)
 
 
+def test_chunk_rows_count_each_field_once():
+    """``ChunkRows.add`` sets a chunk's rounds, budget and
+    ``budget_bound`` once, when its row is made, with no advances yet;
+    ``add_advances`` adds the dead rows with ``idx >= 0`` to the last row
+    and to each spaxel's count; ``advance_summary`` and ``with_totals``
+    leave the rows they are given as they were."""
+    rows = ChunkRows()
+    rows.add(dict(chunk=1, ndraws=10, fill_rounds=3), 4)
+    assert rows[-1] == dict(chunk=1, ndraws=10, fill_rounds=3, rounds=3,
+                            budget=4, advances=0, budget_bound=False)
+    rows.add_advances(np.array([[0, -1], [2, 1]]))
+    rows.add(dict(chunk=2, ndraws=30, fill_rounds=7), 4)
+    rows.add_advances(np.array([[-1, 0]]))
+    rows.add_advances(np.zeros((0, 2), np.int32))
+    assert [r["rounds"] for r in rows] == [3, 4]
+    assert [r["budget_bound"] for r in rows] == [False, True]
+    assert [r["advances"] for r in rows] == [3, 1]
+    assert rows.per_spaxel.tolist() == [2, 2]
+    before = json.dumps(rows)
+    summary = bench.advance_summary(rows, rows.per_spaxel, 30)
+    totals = bench.with_totals(rows)
+    assert json.dumps(rows) == before
+    assert summary["advances"] == 4 and summary["evals_per_advance"] == 7.5
+    assert summary["first_budget_bound_chunk"] == 2
+    assert summary["budget_bound_chunks"] == 1
+    assert [r["advances_total"] for r in totals] == [3, 4]
+    # a record written before the advances were counted gets no totals
+    assert bench.with_totals([dict(chunk=1)]) == [dict(chunk=1)]
+
+
 def test_port_debug_line_is_off_by_default(budget_cube, capsys,
                                            monkeypatch):
     """Without ``MDT_DEBUG_TIMING`` the port's integrator prints no chunk
@@ -500,3 +536,4 @@ def test_seed_spread_gathers_holds_and_repeats(tmp_path, capsys):
                                  cube_sha256="b"))
     with pytest.raises(SystemExit, match="another cube"):
         spread.main(["--jax", jax, "--port", cube, "--out", out])
+

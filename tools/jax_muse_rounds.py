@@ -145,8 +145,6 @@ def jax_chunk_records(checkpoint_dir=None, fill_budget=0):
     ``checkpoint_dir/chunk_NNNNN``, loadable by
     ``io.checkpoint.load_state`` (``tools/muse_rounds_from_state.py
     --state``). Nothing in the fit changes."""
-    import numpy as np
-
     from massivedatans_tpu.io import checkpoint as ckpt
     from massivedatans_tpu.ns import engine, subsets
     from tools.torch_muse_validate import ChunkRows
@@ -160,19 +158,17 @@ def jax_chunk_records(checkpoint_dir=None, fill_budget=0):
         rep = parse(meta, D, K)
         if rows:
             print(json.dumps(dict(package="jax", **rows[-1])), flush=True)
-        rows.append(dict(
+        rows.add(dict(
             chunk=len(rows) + 1, niter=rep["iteration"],
             ndraws=rep["ndraws"], fill_rounds=rep["fill_rounds"],
             running=int(rep["running_final"].sum()),
             member_overflow=rep["member_overflow"],
-            wall_s=time.perf_counter() - t0))
-        rows.count_advances(rows[-1], np.zeros((0, D), np.int32),
-                            fill_budget)
+            wall_s=time.perf_counter() - t0), fill_budget)
         return rep
 
     def dead_block_recorded(block, n):
         out = dead_block(block, n)
-        rows.count_advances(rows[-1], out["idx"][:n], fill_budget)
+        rows.add_advances(out["idx"][:n])
         return out
 
     def labels_recorded(*args, **kw):
@@ -281,7 +277,7 @@ def main(argv=None):
                     rows.append(summary(package, name, seed, opts, res,
                                         time.perf_counter() - t0, per_chunk))
                     print(json.dumps(rows[-1]), flush=True)
-                    rows[-1]["per_chunk"] = per_chunk
+                    rows[-1]["per_chunk"] = bench.with_totals(per_chunk)
     ratios = {}
     for name in args.options:
         for seed in args.seeds if len(args.packages) == 2 else ():

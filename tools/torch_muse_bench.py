@@ -214,22 +214,19 @@ SEED_P_BAR = 0.01
 
 def advance_summary(per_chunk: list, per_spaxel, ndraws: int) -> dict:
     """A fit's progress from its per-chunk records (``torch_muse_validate
-    .ChunkRows``; each row gains ``advances_total``, the advances so far)
-    and each spaxel's advances (``per_spaxel``): the advances, the
-    evaluations per advance, the chunks that used their whole fill budget
-    and the first of them (None: none did), the mean budget per chunk, and
-    the quantiles of the advances per spaxel. Records without advances
-    (written before they were counted) give None for each."""
+    .ChunkRows``) and each spaxel's advances (``per_spaxel``): the
+    advances, the evaluations per advance, the chunks that used their
+    whole fill budget and the first of them (None: none did), the mean
+    budget per chunk, and the quantiles of the advances per spaxel.
+    Records without advances (written before they were counted) give None
+    for each."""
     import numpy as np
 
     if not per_chunk or any("advances" not in r for r in per_chunk):
         return dict(advances=None, evals_per_advance=None,
                     budget_bound_chunks=None, first_budget_bound_chunk=None,
                     mean_budget=None, advance_quantiles=None)
-    total = 0
-    for r in per_chunk:
-        total += r["advances"]
-        r["advances_total"] = total
+    total = sum(r["advances"] for r in per_chunk)
     bound = [r["chunk"] for r in per_chunk if r["budget_bound"]]
     budgets = [r["budget"] for r in per_chunk if r["budget"]]
     return dict(
@@ -240,6 +237,19 @@ def advance_summary(per_chunk: list, per_spaxel, ndraws: int) -> dict:
         advance_quantiles=None if per_spaxel is None else {
             k: float(np.quantile(per_spaxel, q))
             for k, q in QUANTILES.items()})
+
+
+def with_totals(per_chunk: list) -> list:
+    """Copies of a fit's per-chunk records, each with ``advances_total``,
+    the advances through its chunk; records without advances are copied
+    as they are."""
+    out, total = [], 0
+    for r in per_chunk:
+        if "advances" not in r:
+            return [dict(r) for r in per_chunk]
+        total += r["advances"]
+        out.append(dict(r, advances_total=total))
+    return out
 
 
 def held_to_seeds(port: list, jax: list, keys=SEED_KEYS) -> dict:
@@ -489,7 +499,7 @@ def run(args, device, card=None):
         card=card, legs=[{k: lg[k] for k in ("chunks", "wall_s", "niter",
                                              "ndraws")} for lg in legs],
         eager_check=legs[0]["eager_check"],
-        per_chunk=per_chunk,
+        per_chunk=with_totals(per_chunk),
         jax_run=jax_counts(args.n_spaxels),
         paper=PAPER.get(args.n_spaxels) and dict(
             PAPER[args.n_spaxels],

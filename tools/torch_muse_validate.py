@@ -309,24 +309,29 @@ class ChunkRows(list):
 
     per_spaxel = None
 
-    def count_advances(self, row, idx, budget):
-        """Add a chunk's progress to ``row``: its advances (the dead rows
-        with ``idx >= 0``, ``idx`` its ``[rows, D]`` host array, added to
-        those already counted), its fill rounds (unless set, from the
-        cumulative count of the row before), its budget and whether it
-        used the whole of it (``budget_bound``)."""
+    def add(self, row, budget):
+        """Append a chunk's record with its fill rounds (unless set, from
+        the cumulative count of the row before), its budget, whether it
+        used the whole of it (``budget_bound``) and its advances, none
+        until ``add_advances`` counts them."""
+        if "rounds" not in row:
+            prev = self[-1]["fill_rounds"] if self else 0
+            row["rounds"] = row["fill_rounds"] - prev
+        row.update(budget=budget, advances=0,
+                   budget_bound=bool(budget) and row["rounds"] >= budget)
+        self.append(row)
+
+    def add_advances(self, idx):
+        """Add the last chunk's advances, its dead rows with ``idx >= 0``
+        (``idx`` their ``[rows, D]`` host array), to its record and to
+        each spaxel's count."""
         import numpy as np
 
         adv = (np.asarray(idx) >= 0).sum(axis=0, dtype=np.int64)
         if self.per_spaxel is None:
             self.per_spaxel = np.zeros(adv.shape, np.int64)
         self.per_spaxel += adv
-        row["advances"] = row.get("advances", 0) + int(adv.sum())
-        if "rounds" not in row:
-            prev = self[-2]["fill_rounds"] if len(self) > 1 else 0
-            row["rounds"] = row["fill_rounds"] - prev
-        row["budget"] = budget
-        row["budget_bound"] = bool(budget) and row["rounds"] >= budget
+        self[-1]["advances"] += int(adv.sum())
 
 
 @contextlib.contextmanager
@@ -336,7 +341,7 @@ def chunk_records(first_chunk=0, group_every=1):
     so far, spaxels running, member overflow, the group count of the
     labels made from its report, host wall since the block began; the
     chunk's advances, fill rounds, budget and ``budget_bound`` as
-    ``ChunkRows.count_advances`` counts them, from its dead rows, and the
+    ``ChunkRows`` counts them, from its dead rows, and the
     launches of its round steps by kind, ``round_steps``), in chunk order.
     It reads each chunk's state and dead rows when the chunk has finished,
     which adds a host read and changes nothing in the fit.
@@ -358,17 +363,17 @@ def chunk_records(first_chunk=0, group_every=1):
         st, dead, n = finish(self)
         steps = sum((p.steps for p in self.programs.values()),
                     collections.Counter())
-        rows.append(dict(
+        rows.add(dict(
             chunk=len(rows) + 1, niter=int(st.iteration),
             ndraws=int(st.ndraws), fill_rounds=int(st.fill_rounds),
             running=int(st.running.sum()),
             member_overflow=int(st.member_overflow),
             wall_s=time.perf_counter() - t0,
             rounds=int(prog.carry.chunk_rounds),
-            round_steps={k: steps[k] - seen[k] for k in kinds}))
+            round_steps={k: steps[k] - seen[k] for k in kinds}),
+            int(prog.carry.budget_in))
         seen.update({k: steps[k] - seen[k] for k in kinds})
-        rows.count_advances(rows[-1], dead.idx[:n].cpu().numpy(),
-                            int(prog.carry.budget_in))
+        rows.add_advances(dead.idx[:n].cpu().numpy())
         return st, dead, n
 
     def labels_recorded(*args, **kw):
