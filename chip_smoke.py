@@ -256,7 +256,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-TIMING_LAUNCHES = 200
+TIMING_LAUNCHES = 100
 TIMING_LAUNCHES_LARGE = 20   # M=16384: the plain radius is ~1 GB per round
 MAIN_M, LARGE_M = 1664, 16384  # member cap (2 x nlive 400 rounded up), large
 COUNT_N = 512     # proposal_batch: both halves of a round in one call
@@ -280,24 +280,26 @@ SLICE_MAX_SAMPLES = 2000  # SLICE's depth cut
 SLICE_MIN_HELD = 40  # of the first 100, stopped at tolerance before the cap
 # the eager reference of each strategy fit, cut in depth to its first
 # chunks (max_chunks, 50 iterations each) to keep the smoke inside its
-# time limit
-STRATEGY_EAGER_CHUNKS = {"MULTIELLIPSOIDS": 10, "SLICE": 4, "GALILEAN": 6}
+# time aim: at least 5 (SLICE's rounds are the dearest, and it keeps 4)
+STRATEGY_EAGER_CHUNKS = {"MULTIELLIPSOIDS": 5, "SLICE": 4, "GALILEAN": 5}
 # the horns fit's and the MUSE fit's eager references, cut alike to keep
-# the smoke inside its time limit (phase 9's one NCCL rank holds the
-# eager code against phase 4's captured fit at full depth); the escalated
-# MUSE fit's runs to the cap, to hold its escalated chunks
-HORNS_EAGER_CHUNKS, MUSE_EAGER_CHUNKS = 20, 20
+# the smoke inside its time aim, to the 5 chunks every bitwise check keeps
+# (phase 9's one NCCL rank holds the eager code against phase 4's captured
+# fit at full depth); the escalated MUSE fit's runs to the cap, to hold
+# its escalated chunks
+HORNS_EAGER_CHUNKS, MUSE_EAGER_CHUNKS = 5, 5
 # the reference's headline scale (phase 10): the first 10^4 spectra of
 # gen_horns(10000), the stream of tools/scaling_bench.py and bench.py's
 # third workload, held to its own oracle; the eager reference cut to the
 # first chunks, as at 1,000
 HORNS10K_NDATA = 10000
 HORNS10K_ORACLE = "quad_logZ_horns10000.json"
-HORNS10K_EAGER_CHUNKS = 10
+HORNS10K_EAGER_CHUNKS = 5
 # the capped slices profiled on both paths (busy share, kernels dispatched
-# from the host per iteration)
-PATH_PROFILE_SAMPLES = {"horns": 150, "MULTIELLIPSOIDS": 100, "SLICE": 30,
-                        "GALILEAN": 50, "MUSE": 150}
+# from the host per iteration); each is run four times (both paths, timed
+# and traced)
+PATH_PROFILE_SAMPLES = {"horns": 50, "MULTIELLIPSOIDS": 50, "SLICE": 10,
+                        "GALILEAN": 25, "MUSE": 50}
 # the escalated MUSE fit against phase 6's on the spaxels with a star that
 # ran escalated rounds and stopped at tolerance before the cap in both: the
 # share within 3 sqrt(errA^2 + errB^2) + 0.5 of each other, and the least
@@ -788,9 +790,16 @@ def main(argv=None):
                          "tolerance)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    phase_s = {}  # each phase's own seconds, by title
 
     def phase(title):
-        print(f"--- {title} (at {time.perf_counter() - t_start:.1f} s)")
+        now = time.perf_counter() - t_start
+        if phase_s:
+            last = next(reversed(phase_s))
+            phase_s[last] = now - phase_s[last]
+            print(f"    ({last}: {phase_s[last]:.1f} s)")
+        phase_s[title] = now
+        print(f"--- {title} (at {now:.1f} s)")
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1070,6 +1079,9 @@ def main(argv=None):
 
     # --- phase 15: records ---
     phase("phase 15: records")
+    print(json.dumps(dict(phase_s={k: v for k, v in phase_s.items()
+                                   if k != "phase 15: records"},
+                          phases_1_14_s=phase_s["phase 15: records"])))
     src = "massivedatans_tpu_torch/csrc/neighbors.cu"
     replaces = {"count_within": "massivedatans_tpu/ops/pallas_neighbors.py:69",
                 "bootstrapped_sq_radius":

@@ -206,7 +206,7 @@ def test_port_modules_import_no_jax_modules():
         os.path.join(ROOT, "tools", f"{name}.py") for name in (
             "torch_calib_parity", "torch_posterior_recovery",
             "torch_muse_validate", "torch_muse_pieces",
-            "torch_scaling_bench", "torch_muse_bench")]
+            "torch_scaling_bench", "torch_muse_bench", "muse_tpu_budget")]
     for f in sources:
         with open(f) as fh:
             src = fh.read()
